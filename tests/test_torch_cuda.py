@@ -1,0 +1,125 @@
+"""Card-only checks of the PyTorch port, marked ``cuda``: the legal-mask
+kernel against its plain version, the net and the search on the card
+against the CPU, and the serving path through the kernel. Each test asks
+the ``cuda`` fixture whether a card is present, and skips without one.
+
+This file imports no JAX, so it also runs where only the port is installed
+(the root conftest imports JAX, hence ``--noconftest``):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from xiangqi_alphazero_torch.engine import env as E
+from xiangqi_alphazero_torch.engine.edge_boards import edge_boards
+from xiangqi_alphazero_torch.engine.oracle import Position
+from xiangqi_alphazero_torch.models import XiangqiNet
+from xiangqi_alphazero_torch.ops import legal_mask as LM
+from xiangqi_alphazero_torch.search import MCTSConfig, run_mcts
+from xiangqi_alphazero_torch.serve import api as A
+from xiangqi_alphazero_torch.serve import predictor as P
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _boards(dev, games: int = 64, plies: int = 30, seed: int = 0):
+    """Boards of seeded random playouts every 5 plies, then the edge
+    boards."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    st = E.reset_batch(games, device=dev)
+    boards, sides = [], []
+    for ply in range(plies):
+        scores = torch.rand((games, E.ACTION_SPACE), generator=gen, device=dev)
+        st = E.step_batch(st, torch.where(st.legal, scores, -1.0).argmax(dim=1))
+        if ply % 5 == 4:
+            boards.append(st.board)
+            sides.append(st.side)
+    edges = edge_boards().values()
+    boards.append(torch.tensor(np.stack([b for b, _ in edges]), device=dev))
+    sides.append(torch.tensor([s for _, s in edges], dtype=torch.int8, device=dev))
+    return torch.cat(boards[::-1]), torch.cat(sides[::-1])
+
+
+def _advance_random(plies: int, seed: int) -> Position:
+    rng = np.random.default_rng(seed)
+    pos = Position()
+    for _ in range(plies):
+        acts = pos.legal_actions()
+        if pos.result()[0] or not acts:
+            break
+        pos.apply(int(rng.choice(acts)))
+    fresh = Position()
+    fresh.board, fresh.side = list(pos.board), pos.side
+    return fresh
+
+
+def test_kernel_matches_plain_on_card(cuda):
+    boards, sides = _boards(cuda)
+    before = LM.legal_mask_cuda.launches
+    for n in (1, 7, 128, 129, len(boards)):
+        got = LM.legal_mask_cuda(boards[:n].contiguous(), sides[:n].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(got, E.legal_mask(boards[:n], sides[:n])), n
+    assert LM.legal_mask_cuda.launches == before + 5
+    # the env on the card dispatches to the kernel
+    st = E.step_batch(E.reset_batch(4, device=cuda), torch.tensor([0, 1, 2, 3], device=cuda))
+    assert st.legal.is_cuda and LM.legal_mask_cuda.launches == before + 7
+
+
+@torch.no_grad()
+def test_card_forward_matches_cpu(cuda):
+    torch.manual_seed(6)
+    net = XiangqiNet(32, 2).eval()
+    x = torch.rand((8, 10, 9, 15), generator=torch.Generator().manual_seed(6))
+    want_l, want_v = net(x)
+    got_l, got_v = net.to(cuda)(x.to(cuda))
+    # float32 on both sides, TF32 off; the sums run in other orders
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got_v.cpu(), want_v, rtol=0, atol=1e-4)
+
+
+def _dyadic_eval(feats):
+    """Uniform 1/64 priors and value (own - opp) / 8: exact in float32 in
+    any summation order, so the card and the CPU must choose alike."""
+    own = feats[..., :7].sum(dim=(1, 2, 3))
+    opp = feats[..., 7:14].sum(dim=(1, 2, 3))
+    probs = torch.full((feats.shape[0], E.ACTION_SPACE), 1.0 / 64.0, device=feats.device)
+    return probs, (own - opp) / 8.0
+
+
+def test_card_search_equals_cpu(cuda):
+    cases = [_advance_random(p, s) for p, s in [(0, 0), (9, 2), (23, 4), (40, 5)]]
+    roots = E.cat_states([
+        E.state_from_numpy(np.asarray(p.board, np.int8), p.side) for p in cases
+    ])
+    cfg = MCTSConfig(48)
+    cpu = run_mcts(_dyadic_eval, roots, cfg, add_noise=False)
+    card = run_mcts(_dyadic_eval, roots.to(cuda), cfg, add_noise=False)
+    for f in ("visits", "actions", "order", "valid"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+
+
+def test_serving_path_on_card(cuda):
+    sims = 12
+    torch.manual_seed(0)
+    pred = P.Predictor(XiangqiNet(16, 2).eval(), num_simulations=sims, device=cuda)
+    assert all(p.is_cuda for p in pred.net.parameters())
+    pos = Position()
+    before = LM.legal_mask_cuda.launches
+    out = pred.ai_move(pos.copy())
+    assert LM.legal_mask_cuda.launches - before == 1 + sims
+    assert out["ai_move"]["action"] in pos.legal_actions()
+    svc = A.GameService(model_dirs=[], device=cuda)
+    assert svc.models()[1]["device"] == torch.cuda.get_device_name(cuda)

@@ -1,0 +1,82 @@
+"""The PyTorch port stands alone: importing every one of its modules loads
+no JAX, flax, orbax or ``xiangqi_alphazero_tpu`` module, its sources import
+none of them, and its entry points refuse to fall back to the CPU when
+CUDA is missing and the caller did not ask for the CPU."""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import xiangqi_alphazero_torch
+from xiangqi_alphazero_torch.models import XiangqiNet
+from xiangqi_alphazero_torch.serve import __main__ as cli
+from xiangqi_alphazero_torch.serve import api as TA
+from xiangqi_alphazero_torch.serve import predictor as TP
+
+_FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "xiangqi_alphazero_tpu")
+_PKG_DIR = os.path.dirname(xiangqi_alphazero_torch.__file__)
+_REPO = os.path.dirname(_PKG_DIR)
+
+
+def _module_names():
+    return ["xiangqi_alphazero_torch"] + [
+        m.name for m in pkgutil.walk_packages([_PKG_DIR], "xiangqi_alphazero_torch.")
+    ]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in _FORBIDDEN
+
+
+def test_importing_every_module_loads_no_jax():
+    names = _module_names()
+    assert "xiangqi_alphazero_torch.ops.legal_mask" in names
+    code = (
+        "import importlib, json, sys\n"
+        f"for n in {names!r}: importlib.import_module(n)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=_REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    loaded = [m for m in json.loads(out.stdout.strip().splitlines()[-1]) if _forbidden(m)]
+    assert loaded == []
+
+
+def test_sources_import_no_jax():
+    for root, _, files in os.walk(_PKG_DIR):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module]
+                else:
+                    continue
+                assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = XiangqiNet(8, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TP.Predictor(net)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TA.GameService(model_dirs=[])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["api", "--port", "0", "--model-dirs"])
+    # the CPU is taken only when it is asked for
+    assert TP.Predictor(net, device="cpu").device.type == "cpu"
+    assert TA.GameService(model_dirs=[], device="cpu").models()[1]["device"] == "cpu"

@@ -1,0 +1,256 @@
+"""Serving predictor: checkpoint loading, search, analysis payload.
+
+Port of ``xiangqi_alphazero_tpu.serve.predictor``. Loads reference-layout
+``.pt`` checkpoints (the JAX package's orbax bundles are exported to one
+with ``python -m xiangqi_alphazero_tpu.serve export --format torch``). The
+search is the batched PUCT search; the human-facing game state is the host
+oracle ``Position``.
+
+Runs on the card unless the caller passes ``device="cpu"``; without CUDA a
+default-device Predictor raises instead of falling back. The net serves in
+full float32, as the JAX Predictor does: TF32 is turned off for cuDNN
+convolutions and for matmuls, because at serving's batch of 1..8 the net is
+launch-bound (TF32 would save nothing) and TF32's ~1e-3 relative error
+would let the card's search break near-ties differently from the CPU's.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..engine import env as E
+from ..engine.oracle import PIECE_NAMES, Position, decode_action
+from ..models import XiangqiNet, load_reference_pt, policy_value_fn
+from ..search import MCTSConfig, run_mcts
+
+_EXPORT_HINT = (
+    "python -m xiangqi_alphazero_tpu.serve export --checkpoint {path} "
+    "--format torch --output model.pt"
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device to run on: CUDA unless the caller names another. Raises
+    when CUDA is wanted and missing, rather than falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name (torch.cuda.get_device_name), or 'cpu'."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def state_from_position(pos: Position, device="cpu") -> E.EnvState:
+    """A batch-1 EnvState mirroring an oracle Position, including the
+    repetition ring."""
+    hist = np.zeros((E.HIST_LEN, 90), np.int8)
+    recent = pos.history[-E.HIST_LEN:]
+    for i, h in enumerate(recent):
+        idx = (pos.ply - len(recent) + i) % E.HIST_LEN
+        hist[idx] = np.frombuffer(h, np.uint8).astype(np.int8)
+    return E.state_from_numpy(
+        pos.board_array(), pos.side, pos.ply, pos.quiet, hist, device=device
+    )
+
+
+def format_move(action: int, pos: Position) -> str:
+    """Human-readable move label (reference: demo/app.py:118-128)."""
+    fr, fc, tr, tc = decode_action(action)
+    piece = pos.at(fr, fc)
+    captured = pos.at(tr, tc)
+    s = f"{PIECE_NAMES.get(piece, '?')}({fr},{fc})→({tr},{tc})"
+    if captured != 0:
+        s += f" 吃{PIECE_NAMES.get(captured, '')}"
+    return s
+
+
+def find_models(search_dirs: List[str]) -> List[Dict]:
+    """Discover loadable ``.pt`` models (reference: demo/app.py:50-74)."""
+    out = []
+    for d in search_dirs:
+        if not os.path.isdir(d):
+            continue
+        for name in sorted(os.listdir(d)):
+            if name.endswith(".pt"):
+                out.append({"name": name, "path": os.path.join(d, name),
+                            "format": "torch"})
+    return out
+
+
+class Predictor:
+    def __init__(
+        self,
+        net: XiangqiNet,
+        num_simulations: int = 500,
+        c_puct: float = 1.5,
+        algo: str = "puct",
+        device=None,
+    ):
+        if algo == "gumbel":
+            raise NotImplementedError("gumbel search is not ported yet")
+        if algo != "puct":
+            raise ValueError(f"unknown search algo {algo!r}")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.net = net.to(self.device).eval()
+        self.num_simulations = int(num_simulations)
+        self.c_puct = float(c_puct)
+        self.algo = algo
+
+    # ------------------------------------------------------------- loading
+    @classmethod
+    def load(cls, path: str, num_simulations: int = 500, algo: str = "puct",
+             device=None) -> "Predictor":
+        """A Predictor serving the reference-layout ``.pt`` at ``path``."""
+        if not path.endswith(".pt") or os.path.isdir(path):
+            raise ValueError(
+                f"{path} is not a .pt checkpoint; export an orbax model with "
+                + _EXPORT_HINT.format(path=path)
+            )
+        return cls(load_reference_pt(path), num_simulations, algo=algo,
+                   device=device)
+
+    def with_simulations(self, num_simulations: int) -> "Predictor":
+        """Shallow clone sharing the network, with its own search depth."""
+        return Predictor(self.net, num_simulations, self.c_puct,
+                         algo=self.algo, device=self.device)
+
+    # ----------------------------------------------------------- inference
+    def warmup(self) -> None:
+        """Run the forward and the search once now (building the CUDA kernel
+        and warming cuDNN), so the first human_move doesn't pay for it."""
+        pos = Position()
+        self.raw_predict(pos)
+        self.search_position(pos)
+
+    def _features(self, positions: List[Position]) -> torch.Tensor:
+        board = torch.as_tensor(
+            np.stack([p.board_array() for p in positions]), device=self.device
+        )
+        side = torch.tensor([p.side for p in positions], dtype=torch.int8,
+                            device=self.device)
+        return E.features(board, side)
+
+    @torch.inference_mode()
+    def raw_predict(self, pos: Position) -> Tuple[np.ndarray, float]:
+        """(softmax policy[8100], value) for a single position — the
+        reference's model.predict (model.py:109-124)."""
+        probs, value = policy_value_fn(self.net)(self._features([pos]))
+        return probs[0].cpu().numpy(), float(value[0])
+
+    @torch.inference_mode()
+    def raw_predict_batch(
+        self, positions: List[Position], pad_to: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(policy[n, 8100], value[n]) for several positions in one forward;
+        ``pad_to`` pads the batch by repeating positions[0]."""
+        n = len(positions)
+        padded = positions + [positions[0]] * (max(pad_to or n, n) - n)
+        probs, value = policy_value_fn(self.net)(self._features(padded))
+        return probs[:n].cpu().numpy(), value[:n].cpu().numpy()
+
+    @torch.inference_mode()
+    def _search(self, state: E.EnvState):
+        cfg = MCTSConfig(num_simulations=self.num_simulations, c_puct=self.c_puct)
+        res = run_mcts(policy_value_fn(self.net), state, cfg, add_noise=False)
+        return (res.actions.cpu().numpy(), res.visits.cpu().numpy(),
+                res.order.cpu().numpy())
+
+    def search_position(self, pos: Position) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Run MCTS (no noise, greedy analysis). Returns (actions, visits,
+        order) — ``order`` is the movegen-precedence key per slot (ascending
+        == the reference engine's enumeration order; -1 pads)."""
+        actions, visits, order = self._search(state_from_position(pos, self.device))
+        return actions[0], visits[0], order[0]
+
+    def search_batch(
+        self, positions: List[Position], pad_to: Optional[int] = None
+    ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """One batched search over several independent positions. Lanes are
+        independent (no cross-lane reductions, inference-mode batch norm),
+        so each lane equals a batch-1 ``search_position`` of its position.
+        ``pad_to`` pads the batch by repeating positions[0]."""
+        n = len(positions)
+        padded = positions + [positions[0]] * (max(pad_to or n, n) - n)
+        state = E.cat_states([state_from_position(p, self.device) for p in padded])
+        actions, visits, order = self._search(state)
+        return [(actions[i], visits[i], order[i]) for i in range(n)]
+
+    # ------------------------------------------------------------ analysis
+    def ai_move(self, pos: Position) -> Dict:
+        """Pick the greedy move and produce the analysis payload
+        (reference: demo/app.py:322-387)."""
+        return self.ai_move_from_search(pos, self.search_position(pos))
+
+    def ai_move_from_search(
+        self,
+        pos: Position,
+        search: Tuple[np.ndarray, np.ndarray, np.ndarray],
+        raw: Optional[Tuple[np.ndarray, float]] = None,
+    ) -> Dict:
+        """Analysis payload from an already-run search; ``raw`` optionally
+        supplies the (policy, value) forward for the position. 'prob' is the
+        visit-proportional search distribution, as in the JAX package."""
+        actions, visits, mg_order = search[:3]
+        raw_policy, value_score = raw if raw is not None else self.raw_predict(pos)
+        value_score = float(value_score)
+        legal = set(pos.legal_actions())
+
+        total = max(visits.sum(), 1)
+        order = np.argsort(visits)[::-1][:15]
+        # temp-0 pick: first max-visit child in the reference's movegen
+        # order (its max() over the insertion-ordered dict, mcts.py:198)
+        tied = np.flatnonzero((actions >= 0) & (visits == visits.max()))
+        selected = int(actions[tied[np.argmin(mg_order[tied])]])
+
+        top_moves = []
+        for j in order:
+            if visits[j] <= 0 or actions[j] < 0:
+                continue
+            a = int(actions[j])
+            fr, fc, tr, tc = decode_action(a)
+            top_moves.append(
+                {
+                    "action": a,
+                    "from": [fr, fc],
+                    "to": [tr, tc],
+                    "prob": round(float(visits[j] / total), 4),
+                    "raw_prob": round(float(raw_policy[a]), 6),
+                    "legal": a in legal,
+                    "selected": a == selected,
+                    "label": format_move(a, pos),
+                }
+            )
+
+        label = format_move(selected, pos)
+        fr, fc, tr, tc = decode_action(selected)
+        pos.apply(selected)
+        done, winner = pos.result()
+        return {
+            "board": pos.board_array().reshape(10, 9).tolist(),
+            "current_player": pos.side,
+            "game_over": done,
+            "winner": int(winner) if winner else None,
+            "ai_move": {
+                "from": [fr, fc],
+                "to": [tr, tc],
+                "action": selected,
+                "label": label,
+            },
+            "ai_analysis": {
+                "value_score": round(value_score, 4),
+                "top_moves": top_moves,
+                "num_simulations": self.num_simulations,
+            },
+        }
