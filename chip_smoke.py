@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--dense-baseline PATH]
+
+``--dense-baseline`` names a copy of the earlier dense legal-mask kernel
+(one thread per action over per-action constants; for example
+``git show 975e6d0:xiangqi_alphazero_torch/csrc/legal_mask.cu`` saved under
+the ignored ``xiangqi_alphazero_torch/_build/``). It is built beside the
+kernel and timed against it, interleaved, in the same run; without it that
+comparison is left out.
 
 Phases, each of which asserts (any failure exits nonzero, nothing is caught
 and carried on):
@@ -9,9 +16,12 @@ and carried on):
 1. device: the card's name and count, and its power limit from nvidia-smi;
 2. build: ``nvcc`` builds every ``csrc/*.cu`` for sm_90a, all at once;
 3. kernel: the legal-mask kernel against its plain PyTorch version on the
-   card, bit for bit (tolerance: exact equality), on boards of seeded random
-   playouts plus the hand-made edge boards, at ragged batches; ~200 of them
-   also against the pure-Python oracle;
+   card, bit for bit (tolerance: exact equality), on 16,384 boards of
+   seeded random playouts, the hand-made edge boards and 32 wild boards, at
+   ragged batches around every boundary of its grid, with every split of a
+   row over blocks, and at B = 16384 in one call (the plain version in
+   chunks of 2048); ~200 playout and edge boards also against the
+   pure-Python oracle. Each call moves the launch counter by one;
 4. search: ``run_mcts`` with a dyadic mock network gives exactly the CPU's
    visits on the card;
 5. net: the card's forward of the 128-channel, 6-block net against the CPU
@@ -23,8 +33,12 @@ and carried on):
    (each AI reply legal by the oracle), and four sessions moving at once
    (the searches must coalesce). The kernel's launch count is set to 0
    just before and read just after;
-7. timings with CUDA events: the kernel, its plain version and its memory
-   bound at B = 1, 8 and 2048, and the net forward at B = 1 and 8;
+7. timings: the kernel at B = 1 (the opening) and 2, 4, 8, 2048, 16384
+   (mid-game boards), as the profiler's device time per launch and as
+   CUDA-events time per back-to-back call, beside its bytes bound, the
+   device time of a fill of the same bytes (a floor) and its plain
+   version, and beside the dense baseline when given (old, new, new, old); the device time of each split of a row over blocks at B = 1..8;
+   the net forward at B = 1 and 8 (CUDA events);
 8. ``torch.profiler`` over one search of 100 simulations, for where an AI
    move's time goes (device busy share, launches, top kernels, host ops).
 
@@ -33,6 +47,8 @@ The line before the last lists each kernel as JSON; the last line is
 printing any result.
 """
 
+import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -47,7 +63,8 @@ import numpy as np
 import torch
 
 from xiangqi_alphazero_torch.engine import env as E
-from xiangqi_alphazero_torch.engine.edge_boards import edge_boards
+from xiangqi_alphazero_torch.engine import tables as T
+from xiangqi_alphazero_torch.engine.edge_boards import edge_boards, wild_boards
 from xiangqi_alphazero_torch.engine.oracle import Position, decode_action
 from xiangqi_alphazero_torch.models import XiangqiNet, load_reference_pt
 from xiangqi_alphazero_torch.ops import _build
@@ -61,7 +78,9 @@ INT32_OPS_PER_S = 33.5e12     # H100 SXM, 64 INT32 lanes per SM, half the fp32 r
 CHANNELS, BLOCKS = 128, 6     # the shipped model's width
 SIMS = 500                    # the API's default search depth
 PROFILE_SIMS = 100            # the profiler's cost grows with its events
-BOARDS, PLIES, SEED = 2048, 60, 0   # random playouts for the kernel check
+BOARDS, PLIES, SEED = 2048, 80, 0   # playouts kept every 10 plies: 8 x 2048 boards
+TIMED_BATCHES = (1, 2, 4, 8, 2048, 16384)
+SPLITS = (1, 2, 4, 8, 16)           # blocks per board, timed at B <= 8
 KERNELS = [
     {
         "name": "legal_mask",
@@ -95,9 +114,9 @@ def phase_device() -> dict:
     return {"kind": name, "count": count, "smi": smi}
 
 
-def phase_build() -> None:
+def phase_build(dense_src) -> None:
     t0 = time.perf_counter()
-    results = _build.build_all()
+    results = _build.build_all(extra={DenseBaseline.NAME: dense_src} if dense_src else None)
     log(f"build: {len(results)} source(s) in {time.perf_counter() - t0:.2f} s")
     for r in results.values():
         log(f"  {r.name}: nvcc {r.seconds:.2f} s -> {r.path.name}")
@@ -108,48 +127,72 @@ def phase_build() -> None:
 
 def random_boards(dev, n: int, plies: int, seed: int):
     """Boards and sides of ``n`` seeded random playouts on ``dev``, kept
-    every 10 plies, then the hand-made edge boards."""
+    every 10 plies: int8[plies // 10, n, 90] and int8[plies // 10, n]."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     st = E.reset_batch(n, device=dev)
-    boards, sides = [st.board], [st.side]
+    boards, sides = [], []
     for ply in range(1, plies + 1):
         scores = torch.rand((n, E.ACTION_SPACE), generator=gen, device=dev)
         st = E.step_batch(st, torch.where(st.legal, scores, -1.0).argmax(dim=1))
         if ply % 10 == 0:
             boards.append(st.board)
             sides.append(st.side)
-    edges = edge_boards().values()
-    boards.append(torch.tensor(np.stack([b for b, _ in edges]), device=dev))
-    sides.append(torch.tensor([s for _, s in edges], dtype=torch.int8, device=dev))
-    return torch.cat(boards), torch.cat(sides)
+    return torch.stack(boards), torch.stack(sides)
 
 
-def phase_kernel(dev, n: int, plies: int, seed: int):
-    """Every kernel against its plain version; returns the boards and the
-    largest difference seen (0 when bit-exact)."""
-    boards, sides = random_boards(dev, n, plies, seed)
-    n_edge = len(edge_boards())
-    # ragged batches: the edge boards first, then the last plies' boards
-    mix_b = torch.cat([boards[-n_edge:], boards[-n_edge - n:-n_edge]])
-    mix_s = torch.cat([sides[-n_edge:], sides[-n_edge - n:-n_edge]])
+def to_dev(dev, boards: np.ndarray, sides) -> tuple:
+    return (torch.tensor(np.asarray(boards), dtype=torch.int8, device=dev),
+            torch.tensor(np.asarray(sides), dtype=torch.int8, device=dev))
+
+
+def check_kernel(kern, b, s, **kw) -> tuple:
+    """One kernel call against the plain version (in chunks of 2048); the
+    launch counter must move by exactly one. Returns the legal moves and
+    the largest difference."""
+    before = kern.launches
+    got = kern(b.contiguous(), s.contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1, "the launch counter must move by one per call"
     err = 0
-    for b in (1, 7, 128, 129, 2048):
-        b = min(b, len(mix_b))
-        got = LM.legal_mask_cuda(mix_b[:b].contiguous(), mix_s[:b].contiguous())
-        want = E.legal_mask(mix_b[:b], mix_s[:b])
-        torch.cuda.synchronize()
-        err = max(err, int((got.int() - want.int()).abs().max()))
-        assert torch.equal(got, want), f"kernel != plain at B={b}"
-        log(f"kernel vs plain, B={b}: equal ({int(got.sum())} legal moves)")
-    for i in range(0, len(boards), 2048):
-        b, s = boards[i:i + 2048], sides[i:i + 2048]
-        got, want = LM.legal_mask_cuda(b, s), E.legal_mask(b, s)
-        err = max(err, int((got.int() - want.int()).abs().max()))
-        assert torch.equal(got, want), f"kernel != plain on boards {i}.."
-    log(f"kernel vs plain: {len(boards)} boards equal")
-    idx = np.unique(np.r_[np.linspace(0, len(boards) - 1, 190).astype(int),
-                          np.arange(len(boards) - n_edge, len(boards))])
-    got = LM.legal_mask_cuda(boards[idx].contiguous(), sides[idx].contiguous()).cpu()
+    for i in range(0, len(b), 2048):
+        want = E.legal_mask(b[i:i + 2048], s[i:i + 2048])
+        err = max(err, int((got[i:i + 2048].int() - want.int()).abs().max()))
+        assert torch.equal(got[i:i + 2048], want), f"kernel != plain at B={len(b)}, boards {i}.. {kw}"
+    return int(got.sum()), err
+
+
+def phase_kernel(dev, playouts) -> int:
+    """The kernel against its plain version and the oracle; returns the
+    largest difference seen (0: every comparison is asserted bit-exact)."""
+    kern = LM.legal_mask_cuda
+    edges = edge_boards().values()
+    edge_b, edge_s = to_dev(dev, np.stack([b for b, _ in edges]), [s for _, s in edges])
+    wild_b, wild_s = to_dev(dev, *wild_boards(32, SEED))
+    play_b, play_s = playouts[0].reshape(-1, E.NSQ), playouts[1].reshape(-1)
+    # ragged batches around every boundary of the grid: edge and wild boards
+    # first, then playouts
+    mix_b = torch.cat([edge_b, wild_b, play_b])
+    mix_s = torch.cat([edge_s, wild_s, play_s])
+    err = 0
+    for b in (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 127, 128, 129, 2048):
+        n, e = check_kernel(kern, mix_b[:b], mix_s[:b])
+        err = max(err, e)
+        log(f"kernel vs plain, B={b}: equal ({n} legal moves)")
+    for split in (1, 2, 4, 8, 16, 32, 64):
+        for b in (1, 5, 9, 41):
+            err = max(err, check_kernel(kern, mix_b[:b], mix_s[:b], blocks_per_board=split)[1])
+    log("kernel vs plain: every split of a row over 1..64 blocks equal at B = 1, 5, 9, 41")
+    n, e = check_kernel(kern, wild_b, wild_s)
+    err = max(err, e)
+    log(f"kernel vs plain: {len(wild_b)} wild boards equal ({n} legal moves)")
+    n, e = check_kernel(kern, play_b, play_s)
+    err = max(err, e)
+    log(f"kernel vs plain, B={len(play_b)} in one call: equal ({n} legal moves)")
+    boards = torch.cat([play_b, edge_b])
+    sides = torch.cat([play_s, edge_s])
+    idx = np.unique(np.r_[np.linspace(0, len(play_b) - 1, 190).astype(int),
+                          np.arange(len(play_b), len(boards))])
+    got = kern(boards[idx].contiguous(), sides[idx].contiguous()).cpu()
     for row, i in enumerate(idx):
         pos = Position()
         pos.board = [int(x) for x in boards[i].tolist()]
@@ -157,7 +200,41 @@ def phase_kernel(dev, n: int, plies: int, seed: int):
         want = set(pos.legal_actions())
         assert set(torch.nonzero(got[row])[:, 0].tolist()) == want, f"oracle, board {i}"
     log(f"kernel vs oracle: {len(idx)} boards equal")
-    return boards, sides, err
+    return err
+
+
+class DenseBaseline(LM.LegalMaskKernel):
+    """The earlier dense design of the legal-mask kernel (one block per
+    board, one thread per action over per-action constants), built from a
+    source named on the command line, for timing beside the kernel in the
+    same run. It shares the kernel's wrapper checks, so the two differ only
+    on the card. It is no part of the package."""
+
+    NAME = "legal_mask_dense"
+    SYMBOL = "legal_mask_kernel"
+
+    def __init__(self, src: str, dev):
+        super().__init__()
+        fn = _build.load(self.NAME, src).xq_legal_mask
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self.fn = fn
+        t = T.tables()
+        flags = np.zeros(E.ACTION_SPACE, np.int16)
+        for bit, (key, side) in enumerate(LM.CLASSES):   # its flag bits, in this order
+            flags |= (t[key] if side is None else t[key][side]).astype(np.int16) << bit
+        block = t["BLOCK"].T.astype(bool)
+        squares = np.zeros((E.ACTION_SPACE, 8), np.uint8)
+        for a in np.flatnonzero(block.any(axis=1)):
+            sq = np.flatnonzero(block[a])
+            squares[a, :len(sq)] = sq
+        self.consts = [torch.from_numpy(c).to(dev) for c in
+                       (flags, block.sum(axis=1).astype(np.uint8), squares)]
+
+    def _launch(self, board, side, out, blocks_per_board) -> int:
+        return self.fn(board.data_ptr(), side.data_ptr(),
+                       *[c.data_ptr() for c in self.consts], out.data_ptr(),
+                       board.shape[0], torch.cuda.current_stream().cuda_stream)
 
 
 def advance_random(plies: int, seed: int) -> Position:
@@ -367,38 +444,159 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def mask_bound_ms(batch: int) -> tuple:
-    """The least time for the mask of ``batch`` boards: its bytes (90 board
+def candidate_count(boards: torch.Tensor, sides: torch.Tensor) -> int:
+    """Candidate moves the kernel tests on these boards: the table entries
+    of every piece of the side to move."""
+    b = boards.cpu().numpy().astype(np.int64)
+    s = sides.cpu().numpy().astype(np.int64)[:, None]
+    kind, si = np.where(b * s > 0, b * s, 0), (s < 0).astype(np.int64)
+    cls = np.select([kind == 1, kind == 2, kind == 3, kind == 7, kind == 4],
+                    [si, 2 + si, 4 + si, 6 + si, 8], 9)
+    per = (LM.action_constants() != LM.EMPTY).sum(axis=2)        # [class, from]
+    return int(np.where(kind > 0, per[cls, np.arange(E.NSQ)], 0).sum())
+
+
+def mask_bound_ms(boards: torch.Tensor, sides: torch.Tensor) -> tuple:
+    """The least time for the mask of these boards: its bytes (90 board
     bytes and 1 side byte read, 8100 mask bytes written, per board) over the
-    memory rate, against its operations (at least one test per action) over
-    the int32 rate."""
+    memory rate, against its operations (one test per candidate move of
+    these boards) over the int32 rate."""
+    batch = len(boards)
     t_bytes = batch * (E.NSQ + 1 + E.ACTION_SPACE) / HBM_BYTES_PER_S * 1e3
-    t_ops = batch * E.ACTION_SPACE / INT32_OPS_PER_S * 1e3
+    t_ops = candidate_count(boards, sides) / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timings(dev, boards, sides, net) -> dict:
+PROFILE_PAD_S = 0.05   # idle host time at each end of a profiler window
+PROFILE_TRIES = 3
+
+
+def device_us(fn, symbol: str, n: int = 100) -> float:
+    """The profiler's device time per launch (us) of the kernel ``symbol``
+    over ``n`` back-to-back calls of ``fn``.
+
+    The profiler keeps only device records whose converted timestamps fall
+    inside its window, so a short window can lose launches at its edges
+    (an H100 run once kept 25 of 100). The launches are therefore padded
+    by idle host time at both ends, and a window that kept fewer than 90%
+    of them is taken again. If every try loses records, the time is the
+    mean over the launches the fullest window kept, and the log says so.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = (0, 0.0)
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.key]
+        count = sum(e.count for e in evs)
+        assert count <= n, f"profiler saw {count} launches of {symbol}, want {n}"
+        if count > best[0]:
+            best = (count, sum(e.self_device_time_total for e in evs))
+        if count >= 0.9 * n:
+            break
+        log(f"  profiler kept {count} of {n} launches of {symbol}; taking the window again")
+    count, total = best
+    assert count >= n // 10, f"profiler saw {count} launches of {symbol}, want {n}"
+    if count < 0.9 * n:
+        log(f"  profiler kept at most {count} of {n} launches of {symbol} in "
+            f"{PROFILE_TRIES} windows; the time is their mean")
+    return total / count
+
+
+def timed_inputs(dev, playouts, b: int) -> tuple:
+    """Serving's B = 1 is the opening; larger batches are mid-game boards
+    (the ply-40 playouts, and at 16384 every kept ply)."""
+    if b == 1:
+        st = E.reset_batch(1, device=dev)
+        return st.board.contiguous(), st.side.contiguous()
+    boards, sides = playouts
+    if b <= boards.shape[1]:
+        return boards[3, :b].contiguous(), sides[3, :b].contiguous()
+    return boards.reshape(-1, E.NSQ)[:b].contiguous(), sides.reshape(-1)[:b].contiguous()
+
+
+def interleaved(fns: dict, measure) -> dict:
+    """``measure(fn)`` of each of two functions in the order a, b, b, a;
+    the mean of the two readings of each (one function: two readings)."""
+    names = list(fns)
+    order = names + names[::-1] if len(names) == 2 else names * 2
+    got = {n: [] for n in names}
+    for n in order:
+        got[n].append(measure(fns[n]))
+    return {n: sum(v) / len(v) for n, v in got.items()}
+
+
+def phase_timings(dev, playouts, net, dense) -> dict:
+    """The kernel at every timed batch: the profiler's device time per
+    launch (``ms``, the kernel's own time, against which the bound is
+    read) and the CUDA-events time per back-to-back call (``call_ms``,
+    set by the host wrapper at small B), each beside the dense baseline's
+    when it is given, interleaved (old, new, new, old)."""
     kern = LM.legal_mask_cuda
     saved = kern.launches
     rows = {}
-    for b in (1, 8, 2048):
-        bb, ss = boards[-b:].contiguous(), sides[-b:].contiguous()
-        iters = 200 if b < 2048 else 50
-        ms = cuda_ms(lambda: kern(bb, ss), iters)
-        plain = cuda_ms(lambda: E.legal_mask(bb, ss), max(iters // 10, 5))
-        bound, by = mask_bound_ms(b)
-        rows[b] = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                   "share_of_bound": bound / ms}
-        log(f"legal_mask B={b}: kernel {ms:.5f} ms, bound {bound:.6f} ms ({by}), "
-            f"share of bound {bound / ms:.4f}; plain version {plain:.5f} ms "
+    for b in TIMED_BATCHES:
+        bb, ss = timed_inputs(dev, playouts, b)
+        assert len(bb) == b
+        iters = 200 if b <= 8 else (50 if b <= 2048 else 20)
+        fns = {"new": lambda: kern(bb, ss)}
+        if dense is not None:
+            assert torch.equal(dense(bb, ss), kern(bb, ss)), f"dense baseline != kernel at B={b}"
+            fns = {"dense": lambda: dense(bb, ss), **fns}
+        call = interleaved(fns, lambda fn: cuda_ms(fn, iters))
+        symbols = {"new": LM.KERNEL_SYMBOL, "dense": DenseBaseline.SYMBOL}
+        dev_us = interleaved({n: (f, symbols[n]) for n, f in fns.items()},
+                             lambda fs: device_us(fs[0], fs[1], min(iters, 100)))
+        row = {"ms": dev_us["new"] / 1e3, "call_ms": call["new"],
+               "dense_ms": dev_us["dense"] / 1e3 if dense is not None else None,
+               "dense_call_ms": call.get("dense")}
+        # a floor: the device time of writing the same bytes with a fill
+        fill = torch.empty((b, E.ACTION_SPACE), dtype=torch.bool, device=dev)
+        row["fill_ms"] = device_us(lambda: fill.fill_(False), "elementwise", min(iters, 100)) / 1e3
+        row["plain_ms"] = None if b > 2048 else cuda_ms(lambda: E.legal_mask(bb, ss), max(iters // 10, 5))
+        row["bound_ms"], row["bound_by"] = mask_bound_ms(bb, ss)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if dense is not None:
+            row["dense_share_of_bound"] = row["bound_ms"] / row["dense_ms"]
+        rows[b] = row
+
+        def fmt(x, unit="ms"):
+            return "not given" if x is None else f"{x:.5f} {unit}"
+        log(f"legal_mask B={b}: device time per launch {fmt(row['ms'])} (dense baseline "
+            f"{fmt(row['dense_ms'])}); per call {fmt(row['call_ms'])} (dense baseline "
+            f"{fmt(row['dense_call_ms'])}); bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}), share of bound {row['share_of_bound']:.4f}; a fill of the "
+            f"same bytes {fmt(row['fill_ms'])}; plain "
+            f"version {'not timed' if row['plain_ms'] is None else fmt(row['plain_ms'])} "
             f"(not a yardstick)")
+    # each split of a row over blocks at serving's batches: device time
+    splits = {}
+    for b in (1, 2, 4, 8):
+        bb, ss = timed_inputs(dev, playouts, b)
+        t = {sp: [] for sp in SPLITS}
+        for order in (SPLITS, SPLITS[::-1]):
+            for sp in order:
+                t[sp].append(device_us(lambda: kern(bb, ss, blocks_per_board=sp),
+                                       LM.KERNEL_SYMBOL) / 1e3)
+        splits[b] = {sp: sum(v) / 2 for sp, v in t.items()}
+        log(f"legal_mask B={b}, device ms per launch by blocks per board (default "
+            f"{LM.launch_plan(b).blocks_per_board}): " + ", ".join(
+                f"{sp}: {ms:.5f}" for sp, ms in splits[b].items()))
     kern.launches = saved   # timing launches are not main-path launches
     with torch.inference_mode():
         for b in (1, 8):
             x = positions_features(dev, b, seed=21)
             log(f"net forward {CHANNELS}ch/{BLOCKS}res B={b}: "
                 f"{cuda_ms(lambda: net(x), 50):.4f} ms")
-    return rows
+    return {"rows": rows, "splits": splits}
 
 
 _NET_KERNEL_WORDS = ("conv", "gemm", "cudnn", "xmma", "cutlass", "implicit", "winograd")
@@ -426,10 +624,10 @@ def phase_profile(dev, net, sims: int) -> None:
     log(f"profile, one search of {sims} sims (profiler on): wall {wall:.4f} s, "
         f"device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}, "
         f"{launches} device kernels ({launches / sims:.1f} per simulation)")
-    groups = {"net (conv/gemm)": 0.0, "legal_mask_kernel": 0.0, "other": 0.0}
+    groups = {"net (conv/gemm)": 0.0, LM.KERNEL_SYMBOL: 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        key = ("legal_mask_kernel" if "legal_mask_kernel" in name else
+        key = (LM.KERNEL_SYMBOL if LM.KERNEL_SYMBOL in name else
                "net (conv/gemm)" if any(w in name for w in _NET_KERNEL_WORDS) else "other")
         groups[key] += e.self_device_time_total / 1e6
     log("  device time by group: " + ", ".join(
@@ -445,7 +643,11 @@ def phase_profile(dev, net, sims: int) -> None:
 # -------------------------------------------------------------------- main
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--dense-baseline", metavar="PATH",
+                        help="source of the earlier dense kernel, timed beside this one")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
               file=sys.stderr)
@@ -455,21 +657,25 @@ def main() -> int:
     t_start = time.perf_counter()
 
     device = phase_device()
-    phase_build()
-    boards, sides, err = phase_kernel(dev, BOARDS, PLIES, SEED)
+    phase_build(args.dense_baseline)
+    dense = DenseBaseline(args.dense_baseline, dev) if args.dense_baseline else None
+    playouts = random_boards(dev, BOARDS, PLIES, SEED)
+    err = phase_kernel(dev, playouts)
     phase_search(dev)
     with tempfile.TemporaryDirectory() as tmp:
         name = f"random_{CHANNELS}x{BLOCKS}.pt"
         write_random_pt(os.path.join(tmp, name), SEED)
         net = phase_net(dev, os.path.join(tmp, name))
         serve = phase_serve(dev, tmp, name, SIMS, SEED)
-    rows = phase_timings(dev, boards, sides, net)
+    timings = phase_timings(dev, playouts, net, dense)
     phase_profile(dev, net, PROFILE_SIMS)
     log(f"AI move latency at {SIMS} sims: "
-        f"{[round(x, 4) for x in serve['ai_move_s']]} s; "
+        f"{[round(x, 4) for x in serve['ai_move_s']]} s; 4 concurrent session moves: "
+        f"{[round(x, 4) for x in serve['session_move_s']]} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
+    rows = timings["rows"]
     for k in KERNELS:
         main_row = rows[1]   # serving's AI move runs the kernel at B = 1
         kernels.append({
@@ -479,6 +685,8 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": k["library_ms"],
             "by_batch": {str(b): r for b, r in rows.items()},
+            "ms_by_blocks_per_board": {str(b): {str(sp): ms for sp, ms in r.items()}
+                                       for b, r in timings["splits"].items()},
         })
     log(device["smi"])
     log(json.dumps({"kernels": kernels}))

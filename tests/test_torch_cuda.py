@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from xiangqi_alphazero_torch.engine import env as E
-from xiangqi_alphazero_torch.engine.edge_boards import edge_boards
+from xiangqi_alphazero_torch.engine.edge_boards import edge_boards, wild_boards
 from xiangqi_alphazero_torch.engine.oracle import Position
 from xiangqi_alphazero_torch.models import XiangqiNet
 from xiangqi_alphazero_torch.ops import legal_mask as LM
@@ -66,16 +66,41 @@ def _advance_random(plies: int, seed: int) -> Position:
 
 
 def test_kernel_matches_plain_on_card(cuda):
+    """Bit-exact against the plain version on playout, edge and wild
+    boards, at ragged batches around every boundary of the grid, with every
+    split of a row over blocks, and at B = 16384 in one call; ~200 boards
+    against the oracle. Each call moves the launch counter by one."""
     boards, sides = _boards(cuda)
-    before = LM.legal_mask_cuda.launches
-    for n in (1, 7, 128, 129, len(boards)):
-        got = LM.legal_mask_cuda(boards[:n].contiguous(), sides[:n].contiguous())
+    wild_b, wild_s = (torch.from_numpy(x).to(cuda) for x in wild_boards())
+    mix_b, mix_s = torch.cat([wild_b, boards]), torch.cat([wild_s, sides])
+    kern = LM.legal_mask_cuda
+
+    def check(b, s, **kw):
+        before = kern.launches
+        got = kern(b.contiguous(), s.contiguous(), **kw)
         torch.cuda.synchronize()
-        assert torch.equal(got, E.legal_mask(boards[:n], sides[:n])), n
-    assert LM.legal_mask_cuda.launches == before + 5
+        assert kern.launches == before + 1
+        for i in range(0, len(b), 2048):
+            assert torch.equal(got[i:i + 2048], E.legal_mask(b[i:i + 2048], s[i:i + 2048])), (len(b), i, kw)
+        return got
+
+    for n in (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 127, 128, 129, 2048):
+        check(mix_b[:n], mix_s[:n])
+    for split in (1, 2, 4, 8, 16, 32, 64):
+        for n in (1, 9, 40):
+            check(mix_b[:n], mix_s[:n], blocks_per_board=split)
+    big = torch.arange(16384, device=cuda) % len(mix_b)
+    check(mix_b[big], mix_s[big])
+    idx = torch.linspace(0, len(boards) - 1, 200, device=cuda).long()
+    got = check(boards[idx], sides[idx]).cpu()
+    for row, i in enumerate(idx.tolist()):
+        pos = Position()
+        pos.board, pos.side = [int(x) for x in boards[i].tolist()], int(sides[i])
+        assert set(torch.nonzero(got[row])[:, 0].tolist()) == set(pos.legal_actions()), i
     # the env on the card dispatches to the kernel
+    before = kern.launches
     st = E.step_batch(E.reset_batch(4, device=cuda), torch.tensor([0, 1, 2, 3], device=cuda))
-    assert st.legal.is_cuda and LM.legal_mask_cuda.launches == before + 7
+    assert st.legal.is_cuda and kern.launches == before + 2
 
 
 @torch.no_grad()

@@ -1,7 +1,10 @@
 """The PyTorch port's engine against the JAX package, bit for bit: the
 tables, the oracle, the batched env over random playouts, and the legal
 mask (the plain version against the JAX XLA path and the Pallas kernel in
-interpret mode). The card-only checks are in test_torch_cuda.py."""
+interpret mode, also on wild boards no game reaches). The CUDA kernel's
+candidate tables and launch plan are checked here, and its candidate walk
+is emulated in numpy against the plain version; the card-only checks are
+in test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -13,7 +16,7 @@ import jax.numpy as jnp
 from xiangqi_alphazero_torch.engine import env as TE
 from xiangqi_alphazero_torch.engine import oracle as TO
 from xiangqi_alphazero_torch.engine import tables as TT
-from xiangqi_alphazero_torch.engine.edge_boards import edge_boards
+from xiangqi_alphazero_torch.engine.edge_boards import edge_boards, wild_boards
 from xiangqi_alphazero_torch.ops import legal_mask as TL
 from xiangqi_alphazero_tpu.engine import env as JE
 from xiangqi_alphazero_tpu.engine import oracle as JO
@@ -164,16 +167,166 @@ def test_state_from_numpy_and_reset():
     assert r.board.shape == (3, 90) and int(r.legal.sum()) == 3 * 44
 
 
-def test_kernel_constants_rebuild_the_tables():
-    flags, nblock, block = TL.action_constants()
+# ---------------------------------------------------------------------------
+# The kernel's candidate tables, launch plan and candidate walk, on the CPU
+# ---------------------------------------------------------------------------
+
+_FM_SQ = np.array([(q % 10) * 9 + q // 10 for q in range(90)])   # file-major -> square
+
+
+def _decode(e):
+    """(destination, blocker squares) of one candidate-table entry."""
+    e = int(e)
+    lo, hi = (e >> 8) & 127, (e >> 16) & 127
+    idx = np.arange(lo, hi)
+    return e & 127, (_FM_SQ[idx] if (e >> 24) & 1 else idx)
+
+
+@pytest.mark.parametrize("c", range(len(TL.CLASSES)))
+def test_kernel_constants_rebuild_the_tables(c):
+    """Class c's candidate lists give exactly its geometry table's actions,
+    each once, with exactly that action's BLOCK column as blockers."""
+    key, side = TL.CLASSES[c]
     t = TT.tables()
-    rebuilt = np.zeros((90, TE.ACTION_SPACE), np.int8)
-    for a in range(TE.ACTION_SPACE):
-        rebuilt[block[a, : nblock[a]], a] = 1
-    assert np.array_equal(rebuilt, t["BLOCK"])
-    assert np.array_equal((flags >> 8) & 1, t["HORSE_A"])
-    assert np.array_equal((flags >> 9) & 1, t["ALIGNED_A"])
-    assert np.array_equal((flags >> 1) & 1, t["KING_A"][1])
+    table = TL.action_constants()[c]
+    geom = np.zeros(TE.ACTION_SPACE, bool)
+    block = np.zeros((90, TE.ACTION_SPACE), np.int8)
+    for f in range(90):
+        used = table[f] != TL.EMPTY
+        assert not used[used.argmin():].any() or used.all()   # entries first, then EMPTY
+        for e in table[f][used]:
+            to, squares = _decode(e)
+            a = f * 90 + to
+            assert not geom[a], a
+            geom[a] = True
+            block[squares, a] = 1
+    want = t[key] if side is None else t[key][side]
+    assert np.array_equal(geom, want)
+    assert np.array_equal(block[:, want], t["BLOCK"][:, want])
+    assert not block[:, ~want].any()
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 5, 7, 8, 9, 127, 128, 129, 2048, 16384])
+def test_launch_plan_covers_every_action_once(batch):
+    """The default plan, and every split the wrapper accepts, give each
+    (board, action) to exactly one block, in 16-byte-aligned chunks."""
+    plans = [TL.launch_plan(batch)] + [TL.launch_plan(batch, s) for s in (1, 2, 4, 8, 16, 32, 64)]
+    for plan in plans:
+        board, lo, hi = TL.block_ranges(batch, plan)
+        assert len(board) == plan.grid(batch) and plan.chunk % 16 == 0
+        order = np.lexsort((lo, board))
+        board, lo, hi = board[order], lo[order], hi[order]
+        assert np.array_equal(np.unique(board), np.arange(batch))
+        first = np.r_[True, board[1:] != board[:-1]]
+        last = np.r_[board[1:] != board[:-1], True]
+        assert (lo[first] == 0).all() and (hi[last] == TE.ACTION_SPACE).all()
+        assert np.array_equal(lo[~first], hi[np.flatnonzero(~first) - 1])
+        assert (hi - lo >= 16).all() and (lo % 16 == 0).all()
+        assert int((hi - lo).sum()) == batch * TE.ACTION_SPACE
+    with pytest.raises(ValueError):
+        TL.launch_plan(batch, 3)
+
+
+def _kernel_walk(board: np.ndarray, side: int) -> np.ndarray:
+    """csrc/legal_mask.cu's algorithm restated in numpy for one board: the
+    flat list of the candidate-table entries of the side to move's pieces,
+    blocker counts from the entries' bit ranges (prefix sums standing in for
+    the popcounts), and king safety from the fixed enemy slots (the first 2
+    rooks, 2 cannons, the king, 2 horses and 5 pawns, in square order) as
+    the kernel's per-square bits: for a king move, the palace square
+    attacked once the king has left; for any other move, each slot's screen
+    count against where it stands and the move's effect on it."""
+    t = TT.tables()
+    s, si = int(side), int(side < 0)
+    out = np.zeros(TE.ACTION_SPACE, bool)
+    kings = np.flatnonzero(board == s)
+    if not len(kings):
+        return out
+    k = kings[0]
+    occ = board != 0
+    prefix = (np.r_[0, np.cumsum(occ)], np.r_[0, np.cumsum(occ[_FM_SQ])])
+    own = np.flatnonzero(board * s > 0)
+    kind = board[own] * s
+    cls = np.select([kind == 1, kind == 2, kind == 3, kind == 7, kind == 4],
+                    [si, 2 + si, 4 + si, 6 + si, 8], 9)
+    e = TL.action_constants()[cls, own].astype(np.int64)
+    f = np.repeat(own, TL.CAP)[e.ravel() != TL.EMPTY]
+    e = e.ravel()[e.ravel() != TL.EMPTY]
+    to, lo, hi, fm = e & 127, (e >> 8) & 127, (e >> 16) & 127, (e >> 24) & 1
+    nb = np.where(fm == 1, prefix[1][hi] - prefix[1][lo], prefix[0][hi] - prefix[0][lo])
+    pt = board[to].astype(np.int64)
+    cannon = board[f] * s == 6
+    pseudo = (pt * s <= 0) & np.where(
+        cannon, ((nb == 0) & (pt == 0)) | ((nb == 1) & (pt * s < 0)), nb == 0)
+    f, to, pt = f[pseudo], to[pseudo], pt[pseudo]
+
+    # per-square bits and per-slot flags, as the kernel's phase B builds them
+    between = np.zeros((5, 90), bool)      # strictly between ray slot j and k
+    leg = np.zeros((2, 90), bool)          # leg of horse slot h toward k
+    held = np.full(90, -1)                 # slot on each square
+    ray_pre, screens, want = np.zeros(5, bool), np.zeros(5, int), np.array([0, 0, 1, 1, 0])
+    horse_geom, leg_empty, pawn_pre = np.zeros(2, bool), np.zeros(2, bool), np.zeros(5, bool)
+    palace_unsafe = np.zeros(90, bool)
+    slots = [(code, j) for code, n in ((5, 2), (6, 2), (1, 1), (4, 2), (7, 5)) for j in range(n)]
+    for i, (code, j) in enumerate(slots):
+        found = np.flatnonzero(board == -code * s)
+        if j >= len(found):
+            continue
+        x = found[j]
+        held[x] = i
+        if i < 5 and t["ALIGNED_SQ"][x, k]:
+            ray_pre[i], between[i] = True, t["BTW"][x, k] == 1
+            screens[i] = occ[between[i]].sum()
+        elif 5 <= i < 7 and t["HORSE_PAIR"][x, k]:
+            horse_geom[i - 5] = True
+            leg[i - 5, t["KLEG"][x, k]] = True
+            leg_empty[i - 5] = not occ[t["KLEG"][x, k]]
+        elif i >= 7:
+            pawn_pre[i - 7] = t["PAWN_ATK"][1 - si, x, k]
+        for pj in t["PALACE_SQ"][si]:          # the king steps to pj
+            if pj == x:
+                continue
+            after = occ.copy()
+            after[k], after[pj] = False, True
+            if i < 5:
+                hit = t["ALIGNED_SQ"][x, pj] and after[t["BTW"][x, pj] == 1].sum() == want[i]
+            elif i < 7:
+                hit = t["HORSE_PAIR"][x, pj] and not after[t["KLEG"][x, pj]]
+            else:
+                hit = t["PAWN_ATK"][1 - si, x, pj]
+            palace_unsafe[pj] |= hit
+    bf = between[:, f]                                   # [5, m]
+    bt = between[:, to] & (pt == 0)
+    alive = held[to][None, :] != np.arange(12)[:, None]  # [12, m]: slot not captured
+    delta = bt.astype(int) - bf.astype(int)
+    rays = (ray_pre[:, None] & alive[:5] & (screens[:, None] + delta == want[:, None])).any(axis=0)
+    horses = (horse_geom[:, None] & alive[5:7] & ~leg[:, to]
+              & (leg[:, f] | leg_empty[:, None])).any(axis=0)
+    pawns = (pawn_pre[:, None] & alive[7:]).any(axis=0)
+    safe = np.where(f == k, ~palace_unsafe[to], ~(rays | horses | pawns))
+    out[(f * 90 + to)[safe]] = True
+    return out
+
+
+@pytest.mark.parametrize("which", ["playout_and_edge", "wild"])
+def test_kernel_walk_matches_plain(boards, which):
+    b_np, s_np = boards if which == "playout_and_edge" else wild_boards()
+    want = TE.legal_mask(torch.from_numpy(b_np), torch.from_numpy(s_np)).numpy()
+    got = np.stack([_kernel_walk(b, s) for b, s in zip(b_np, s_np)])
+    assert np.array_equal(got, want) and want.any()
+
+
+def test_wild_boards_plain_mask_matches_jax_xla():
+    """Piece sets no game reaches: the plain mask keeps the JAX package's
+    slot truncation exactly (one compile of the vmapped JAX mask)."""
+    b_np, s_np = wild_boards()
+    s = s_np.astype(np.int64)[:, None]
+    assert ((b_np == -5 * s).sum(axis=1) >= 3).any() and ((b_np == -7 * s).sum(axis=1) >= 3).any()
+    kings = (b_np == s).sum(axis=1)
+    assert (kings == 0).any() and (kings >= 2).any()
+    want = np.asarray(jax.jit(jax.vmap(JE.legal_mask))(jnp.asarray(b_np), jnp.asarray(s_np)))
+    got = TE.legal_mask(torch.from_numpy(b_np), torch.from_numpy(s_np)).numpy()
+    assert np.array_equal(got, want) and want.sum() > 100
 
 
 def test_kernel_wrapper_dispatch_on_cpu(boards):

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every one of its modules loads
-no JAX, flax, orbax or ``xiangqi_alphazero_tpu`` module, its sources import
-none of them, and its entry points refuse to fall back to the CPU when
-CUDA is missing and the caller did not ask for the CPU."""
+no JAX, flax, orbax or ``xiangqi_alphazero_tpu`` module, its sources and
+``chip_smoke.py`` import none of them, and its entry points refuse to fall
+back to the CPU when CUDA is missing and the caller did not ask for the
+CPU."""
 
 import ast
 import json
@@ -51,21 +52,21 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_sources_import_no_jax():
+    paths = [os.path.join(_REPO, "chip_smoke.py")]
     for root, _, files in os.walk(_PKG_DIR):
-        for f in files:
-            if not f.endswith(".py"):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 10
+    for path in paths:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
                 continue
-            path = os.path.join(root, f)
-            with open(path) as fh:
-                tree = ast.parse(fh.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    names = [node.module]
-                else:
-                    continue
-                assert not any(_forbidden(n) for n in names), (path, names)
+            assert not any(_forbidden(n) for n in names), (path, names)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -2,6 +2,7 @@
 
 Random playouts rarely reach these, so the parity tests and
 ``chip_smoke.py`` add them to the boards they compare the kernel on.
+``wild_boards`` goes further, to piece sets no game reaches.
 """
 
 from __future__ import annotations
@@ -60,4 +61,46 @@ def edge_boards() -> Dict[str, Tuple[np.ndarray, int]]:
         }), -1),
         # in check from a crossed pawn beside the king
         "pawn_check": (_board({(9, 4): -1, (9, 3): 7, (0, 5): 1, (5, 0): -5}), -1),
+        # a cannon checks over an enemy screen: capturing the screen puts a
+        # new screen on the same square, so the check stays
+        "cannon_screen_capture": (_board({
+            (0, 4): 1, (7, 4): -6, (4, 4): -7, (4, 0): 5, (9, 3): -1,
+        }), 1),
+        # a rook on a horse's leg: every rook move uncovers the horse's check
+        "horse_discovered": (_board({
+            (0, 4): 1, (2, 5): -4, (1, 5): 5, (9, 3): -1, (3, 0): 7,
+        }), 1),
     }
+
+
+def wild_boards(n: int = 32, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """(int8[n, 90] boards, int8[n] sides) of seeded random piece sets that
+    no game reaches: 4-30 pieces drawn mostly from rooks, cannons, horses and
+    pawns (so a side often has three or more of one), and kings in turn
+    missing for the side to move, facing on an open file, anywhere on the
+    board, or several on a side. They pin the mask's slot semantics (the
+    first 2 rooks, 2 cannons, 2 horses and 5 pawns in square order, the
+    first king)."""
+    rng = np.random.default_rng(seed)
+    boards = np.zeros((n, 90), np.int8)
+    sides = np.where(rng.random(n) < 0.5, 1, -1).astype(np.int8)
+    for i in range(n):
+        squares = rng.permutation(90)
+        count = int(rng.integers(4, 31))
+        kinds = rng.choice([2, 3, 4, 5, 6, 7], size=count, p=[0.05, 0.05, 0.15, 0.3, 0.2, 0.25])
+        boards[i, squares[:count]] = kinds * rng.choice([1, -1], size=count)
+        free, s = squares[count:], int(sides[i])
+        mode = i % 4
+        if mode == 0:       # only the enemy has a king
+            boards[i, free[0]] = -s
+        elif mode == 1:     # kings face each other on an open file
+            c = int(rng.integers(3, 6))
+            boards[i, [sq(r, c) for r in range(10)]] = 0
+            boards[i, sq(int(rng.integers(0, 3)), c)] = 1
+            boards[i, sq(int(rng.integers(7, 10)), c)] = -1
+        elif mode == 2:     # one king each, anywhere
+            boards[i, free[0]], boards[i, free[1]] = 1, -1
+        else:               # several kings on a side
+            boards[i, free[: int(rng.integers(2, 5))]] = s
+            boards[i, free[5: 5 + int(rng.integers(1, 3))]] = -s
+    return boards, sides

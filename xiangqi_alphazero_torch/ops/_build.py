@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -56,9 +56,10 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` unless that exact source is built already."""
-    src = CSRC_DIR / f"{name}.cu"
+def build(name: str, src: Optional[Path] = None) -> BuildResult:
+    """Compile ``csrc/<name>.cu`` (or the source ``src``, under ``name``)
+    unless that exact source is built already."""
+    src = CSRC_DIR / f"{name}.cu" if src is None else Path(src)
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
@@ -79,19 +80,24 @@ def build(name: str) -> BuildResult:
     return BuildResult(name, out, seconds, log)
 
 
-def build_all(names: Iterable[str] = ()) -> Dict[str, BuildResult]:
-    """Build several sources at once, one ``nvcc`` process each."""
-    names = list(names) or sources()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as ex:
-        futures = {n: ex.submit(build, n) for n in names}
+def build_all(names: Iterable[str] = (), extra: Optional[Dict[str, Path]] = None
+              ) -> Dict[str, BuildResult]:
+    """Build several sources at once, one ``nvcc`` process each: the named
+    ``csrc/`` sources (all of them by default) and ``extra`` sources given
+    by name and path."""
+    jobs = {n: None for n in (list(names) or sources())}
+    jobs.update(extra or {})
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+        futures = {n: ex.submit(build, n, src) for n, src in jobs.items()}
         return {n: f.result() for n, f in futures.items()}
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` (building it if needed)."""
+def load(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` or of ``src`` (building it if
+    needed)."""
     if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(str(build(name).path))
+        _LOADED[name] = ctypes.CDLL(str(build(name, src).path))
     return _LOADED[name]
