@@ -18,8 +18,9 @@ and carried on):
 3. kernel: the legal-mask kernel against its plain PyTorch version on the
    card, bit for bit (tolerance: exact equality), on 16,384 boards of
    seeded random playouts, the hand-made edge boards and 32 wild boards, at
-   ragged batches around every boundary of its grid, with every split of a
-   row over blocks, and at B = 16384 in one call (the plain version in
+   ragged batches around every boundary of its grid and at the training
+   path's (32, 256, 512), with every split of a row over blocks, and at
+   B = 16384 in one call (the plain version in
    chunks of 2048); ~200 playout and edge boards also against the
    pure-Python oracle. Each call moves the launch counter by one;
 4. search: ``run_mcts`` with a dyadic mock network gives exactly the CPU's
@@ -33,8 +34,33 @@ and carried on):
    (each AI reply legal by the oracle), and four sessions moving at once
    (the searches must coalesce). The kernel's launch count is set to 0
    just before and read just after;
-7. timings: the kernel at B = 1 (the opening) and 2, 4, 8, 2048, 16384
-   (mid-game boards), as the profiler's device time per launch and as
+6b. train, the training path (``xiangqi_alphazero_torch.train``):
+   (a) lockstep self-play of 8 games x 16 simulations x 24 plies with the
+   dyadic mock network, openings and resign on, on the card and on the CPU
+   from the same seeded CPU draws: every recorded array and the winners
+   exactly equal (at temperature 1 throughout; a second fleet past the
+   temperature threshold holds ``pi_probs`` at atol 1e-6, since the card's
+   and the CPU's ``pow`` differ in the last bits), and ``evaluate_pair`` at
+   8 games of two exact mock nets with peaked priors: equal winners and
+   final boards; (b) one learner step at 128 channels x 6
+   blocks, float32 with TF32 off, batch 256 from that replay, card against
+   CPU: losses at rtol 1e-5, each device's gradients elementwise within
+   1e-4 |g| + 1e-4 max |g| of a float64 backward on the same ReLU branches
+   (see ``check_learner_card_vs_cpu``), after one Adam step at most 0.1%
+   of the parameters beyond 0.05 lr, batch-norm statistics at atol 1e-6 +
+   rtol 1e-5; (c) ``AlphaZeroTrainer``
+   on the card with the ``tpu`` preset's net, fleet and batch (128 x 6, 512
+   games, batch 1024, bf16), only depth cut (logged), 2 iterations with
+   eval and checkpoints. The kernel's launch count is set to 0 just before
+   ``train()`` and must equal what the loop's own ply and simulation
+   counters predict; after it, the kernel equals its plain version on the
+   fleet's replay boards at an eval half (32) and at the fleet (512). It
+   prints the training path's rates, peak memory and a ``torch.profiler``
+   reading of 2 self-play plies;
+7. timings: the kernel at B = 1 (the opening) and 2, 4, 8, 32 (an eval
+   half of the ``tpu`` preset), 256 (half of a 512-game eval), 512 (the
+   ``tpu`` fleet), 2048, 16384 (mid-game boards), each first checked
+   against its plain version, as the profiler's device time per launch and as
    CUDA-events time per back-to-back call, beside its bytes bound, the
    device time of a fill of the same bytes (a floor) and its plain
    version, and beside the dense baseline when given (old, new, new, old); the device time of each split of a row over blocks at B = 1..8;
@@ -48,8 +74,10 @@ printing any result.
 """
 
 import argparse
+import copy
 import ctypes
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -66,12 +94,24 @@ from xiangqi_alphazero_torch.engine import env as E
 from xiangqi_alphazero_torch.engine import tables as T
 from xiangqi_alphazero_torch.engine.edge_boards import edge_boards, wild_boards
 from xiangqi_alphazero_torch.engine.oracle import Position, decode_action
-from xiangqi_alphazero_torch.models import XiangqiNet, load_reference_pt
+from xiangqi_alphazero_torch.models import (
+    XiangqiNet,
+    init_net,
+    load_reference_pt,
+    policy_logits_fn,
+)
 from xiangqi_alphazero_torch.ops import _build
 from xiangqi_alphazero_torch.ops import legal_mask as LM
 from xiangqi_alphazero_torch.search import MCTSConfig, run_mcts
 from xiangqi_alphazero_torch.serve.api import make_server
 from xiangqi_alphazero_torch.serve.predictor import Predictor
+from xiangqi_alphazero_torch.train import config as TC
+from xiangqi_alphazero_torch.train import learner as TL
+from xiangqi_alphazero_torch.train import selfplay as TS
+from xiangqi_alphazero_torch.train import evaluate as TE
+from xiangqi_alphazero_torch.train.evaluate import EvalSettings, evaluate_pair
+from xiangqi_alphazero_torch.train.replay import ReplayBuffer
+from xiangqi_alphazero_torch.train.trainer import AlphaZeroTrainer
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # H100 SXM, 64 INT32 lanes per SM, half the fp32 rate
@@ -79,7 +119,7 @@ CHANNELS, BLOCKS = 128, 6     # the shipped model's width
 SIMS = 500                    # the API's default search depth
 PROFILE_SIMS = 100            # the profiler's cost grows with its events
 BOARDS, PLIES, SEED = 2048, 80, 0   # playouts kept every 10 plies: 8 x 2048 boards
-TIMED_BATCHES = (1, 2, 4, 8, 2048, 16384)
+TIMED_BATCHES = (1, 2, 4, 8, 32, 256, 512, 2048, 16384)
 SPLITS = (1, 2, 4, 8, 16)           # blocks per board, timed at B <= 8
 KERNELS = [
     {
@@ -174,7 +214,7 @@ def phase_kernel(dev, playouts) -> int:
     mix_b = torch.cat([edge_b, wild_b, play_b])
     mix_s = torch.cat([edge_s, wild_s, play_s])
     err = 0
-    for b in (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 127, 128, 129, 2048):
+    for b in (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 32, 127, 128, 129, 256, 512, 2048):
         n, e = check_kernel(kern, mix_b[:b], mix_s[:b])
         err = max(err, e)
         log(f"kernel vs plain, B={b}: equal ({n} legal moves)")
@@ -429,6 +469,452 @@ def phase_serve(dev, model_dir: str, model_name: str, sims: int, seed: int) -> d
     return out
 
 
+# ------------------------------------------------------------ training path
+
+TRAIN_FLEET, TRAIN_SIMS, TRAIN_PLIES = 8, 16, 24       # (a): card against CPU
+LEARNER_BATCH = 256                                     # (b)
+SP_RECORDS = ("boards", "sides", "pi_actions", "pi_probs", "values", "rec",
+              "winners", "plies", "total_moves")
+
+
+def peaked_dyadic_eval(mult: int):
+    """An exact mock network with peaked priors, for the eval match: the
+    prior of action a is ((a * mult) % 64 + 1) / 1024, the value
+    (own - opp) / 8. Sums of these over a row's slots are exact in float32,
+    so the card and the CPU search alike; two multipliers make two nets
+    that choose different moves (uniform priors would let either net's
+    moves stand for the other's)."""
+    table = torch.tensor([((a * mult) % 64 + 1) / 1024.0 for a in range(E.ACTION_SPACE)])
+
+    def f(feats):
+        _, value = dyadic_eval(feats)
+        return table.to(feats.device).expand(feats.shape[0], -1), value
+
+    return f
+
+
+def check_selfplay_card_vs_cpu(dev, s: TS.SelfPlaySettings, pi_atol: float):
+    """One fleet on the card and on the CPU from the same seeded CPU draws;
+    returns the CPU's record."""
+    with torch.inference_mode():
+        card, cpu = (TS.selfplay_games(dyadic_eval, TRAIN_FLEET, s,
+                                       torch.Generator().manual_seed(SEED), where)
+                     for where in (dev, torch.device("cpu")))
+    for f in SP_RECORDS:
+        g, w = getattr(card, f).cpu(), getattr(cpu, f)
+        if f == "pi_probs" and pi_atol:
+            err = float((g - w).abs().max())
+            assert err <= pi_atol, f"self-play pi_probs: card != CPU by {err}"
+        else:
+            assert torch.equal(g, w), f"self-play {f}: card != CPU"
+    assert card.sims_per_ply == cpu.sims_per_ply
+    log(f"  self-play card == CPU (temperature threshold {s.temperature_threshold}"
+        f"{', pi_probs atol %g' % pi_atol if pi_atol else ', exact'}): {TRAIN_FLEET} games, "
+        f"{len(cpu.sims_per_ply)} plies, winners {cpu.winners.tolist()}, "
+        f"recorded plies {cpu.plies.tolist()}")
+    return cpu
+
+
+def replay_of(out: TS.SelfPlayOut, k: int) -> ReplayBuffer:
+    """The trainer's insertion of one fleet: time-major rows, mirrored."""
+    rec = out.rec.reshape(-1).numpy()
+    buf = ReplayBuffer(4 * rec.size, k)
+    buf.add_games(*(getattr(out, f).reshape(rec.size, -1).squeeze(-1).numpy()[rec]
+                    for f in ("boards", "sides", "pi_actions", "pi_probs", "values")))
+    return buf
+
+
+# gradients, elementwise: |d| <= GRAD_RTOL |g| + GRAD_ATOL max |g| of the tensor
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4
+STEP_FAR = 1e-3                     # share of parameters allowed beyond 0.05 lr
+
+
+def relu_branches(net) -> tuple:
+    """Forward hooks on ``net`` that keep, in forward order, which branch
+    each of its ReLUs took per element (a ReLU's output is > 0 exactly
+    where its input is). Returns (the list they fill, the hooks)."""
+    kept, hooks = [], []
+
+    def out_hook(_m, _i, out):
+        kept.append(out.detach() > 0)
+
+    def in_hook(_m, inp):
+        kept.append(inp[0].detach() > 0)
+
+    hooks.append(net.input_conv.register_forward_hook(out_hook))
+    for blk in net.res_blocks:
+        hooks.append(blk.conv2.register_forward_pre_hook(in_hook))   # relu(bn1(..))
+        hooks.append(blk.register_forward_hook(out_hook))
+    for m in (net.policy_head[2], net.value_head[2], net.value_head[5]):
+        hooks.append(m.register_forward_hook(out_hook))
+    return kept, hooks
+
+
+def forward_on_branches(n, feats, branches, kept) -> tuple:
+    """``XiangqiNet``'s forward in the parameters' dtype end to end (the
+    net's own casts its heads to float32), with each ReLU taking the
+    branches in ``branches`` (``mask * x``, whose gradient is the mask, as
+    ReLU's is), or its own when ``branches`` is None; the branches taken
+    are appended to ``kept``."""
+    it = iter(branches) if branches is not None else None
+
+    def relu(z):
+        m = next(it).to(z.device) if it is not None else z > 0
+        kept.append(m)
+        return z * m.to(z.dtype)
+
+    x = feats.permute(0, 3, 1, 2)
+    y = relu(n.input_conv[1](n.input_conv[0](x)))
+    for blk in n.res_blocks:
+        h = relu(blk.bn1(blk.conv1(y)))
+        y = relu(blk.bn2(blk.conv2(h)) + y)
+    p, v = n.policy_head, n.value_head
+    logits = p[4](relu(p[1](p[0](y))).flatten(1))
+    value = v[7](v[6](relu(v[4](relu(v[1](v[0](y))).flatten(1)))))
+    return logits, value
+
+
+def learner_grads(net, rows, where, dtype, reference=False, branches=None):
+    """One forward and backward of ``net`` in ``dtype`` on ``where``, in
+    train mode: the package's forward, or with ``reference`` the
+    reference forward ``forward_on_branches``. Returns (losses and
+    gradients in float64 on the host, the ReLU branches taken)."""
+    n = copy.deepcopy(net).to(where, dtype).train()
+    batch = [torch.as_tensor(x).to(where) for x in rows]
+    batch = [b.to(dtype) if b.is_floating_point() else b for b in batch]
+    if reference:
+        kept, hooks = [], []
+        m = TL.compute_loss(lambda f: forward_on_branches(n, f.to(dtype), branches, kept),
+                           *batch)
+    else:
+        kept, hooks = relu_branches(n)
+        m = TL.compute_loss(n, *batch)
+    for h in hooks:
+        h.remove()
+    m.total_loss.backward()
+    losses = torch.stack([m.policy_loss, m.value_loss]).detach().double().cpu()
+    grads = {k: p.grad.detach().double().cpu() for k, p in n.named_parameters()}
+    return losses, grads, [b.cpu() for b in kept]
+
+
+def check_learner_card_vs_cpu(dev, buf: ReplayBuffer) -> None:
+    """One learner step at the shipped width, float32 with TF32 off, card
+    against CPU. The losses agree at rtol 1e-5. Each device's gradients are
+    held elementwise, within GRAD_RTOL of |g| plus GRAD_ATOL of the
+    tensor's largest |g|, against a float64 forward and backward on the CPU
+    that takes the same ReLU branches as that device's forward. (The CPU
+    tests' atol is 1e-6 absolute at 8 channels; cuDNN's float32 weight
+    gradients at this size read ~3e-5 of max |g|, ten times the CPU's, so
+    the absolute atol would fail on the card by rounding alone.) A float64 run
+    that takes its own branches differs from either in a handful of the
+    ~40M ReLU elements, whose inputs lie within float32 rounding of 0, and
+    that alone puts the worst gradient ~1% off normwise (logged, not
+    checked). As a control, the card's gradients with TF32 convolutions
+    must fail the same check. After one Adam step at most a share STEP_FAR of the
+    parameters may differ by more than 0.05 lr (the step moves each by at
+    most ~lr, so a bound of 2 lr on all of them, kept as a sanity check,
+    cannot separate a wrong step); the batch-norm statistics agree at atol
+    1e-6 + rtol 1e-5."""
+    lr, wd = 2e-3, 1e-4
+    perm, wmask, _ = buf.epoch_plan(LEARNER_BATCH, 1, np.random.default_rng(SEED))
+    assert wmask[0].all(), "the replay must fill one batch"
+    rows = [a[perm[0]] for a in buf.arrays()] + [wmask[0]]
+    net = init_net(torch.Generator().manual_seed(SEED), CHANNELS, BLOCKS)
+    cpu = torch.device("cpu")
+    (l_cpu, g_cpu, b_cpu), (l_card, g_card, b_card) = (
+        learner_grads(net, rows, w, torch.float32) for w in (cpu, dev))
+    torch.testing.assert_close(l_card, l_cpu, rtol=1e-5, atol=0)
+    l_free, g_free, b_free = learner_grads(net, rows, cpu, torch.float64, reference=True)
+
+    def flips(a, b):
+        return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+    def normwise(g, ref):
+        return max(float((g[k] - ref[k]).abs().max() / ref[k].abs().max()) for k in ref)
+
+    def held(name, g32, b32):
+        """The worst |d| / (atol + rtol |g|) of f32 gradients against f64 on
+        their branches, logged beside the error against f64's own; and the
+        f64 losses."""
+        l64, g64, _ = learner_grads(net, rows, cpu, torch.float64, reference=True, branches=b32)
+        ratio = {k: float(((g32[k] - g64[k]).abs()
+                           / (GRAD_ATOL * g64[k].abs().max() + GRAD_RTOL * g64[k].abs())).max())
+                 for k in g64}
+        k_worst = max(ratio, key=ratio.get)
+        log(f"  {name} f32 gradients against f64 on the same ReLU branches: worst "
+            f"|d| / ({GRAD_ATOL:g} max |g| + {GRAD_RTOL:g} |g|) {ratio[k_worst]:.3g} ({k_worst}), "
+            f"normwise {normwise(g32, g64):.3g}; against f64 on its own branches "
+            f"({flips(b32, b_free)} of {sum(b.numel() for b in b_free)} ReLU elements differ): "
+            f"normwise {normwise(g32, g_free):.3g}")
+        return ratio[k_worst], l64
+
+    worst = {}
+    for name, l32, g32, b32 in (("cpu", l_cpu, g_cpu, b_cpu), ("card", l_card, g_card, b_card)):
+        worst[name], l64 = held(name, g32, b32)
+        torch.testing.assert_close(l32, l64, rtol=1e-5, atol=0)
+    assert max(worst.values()) <= 1.0, worst
+    log(f"  ReLU elements on other branches, card f32 vs CPU f32: {flips(b_card, b_cpu)}; "
+        f"f64 losses on its own branches {l_free.tolist()}")
+    # a control the check must reject: the card's convolutions in TF32
+    torch.backends.cudnn.allow_tf32 = True
+    _, g_tf32, b_tf32 = learner_grads(net, rows, dev, torch.float32)
+    torch.backends.cudnn.allow_tf32 = False
+    assert held("card TF32 (control)", g_tf32, b_tf32)[0] > 1.0, "TF32 must fail the check"
+
+    states = []
+    for where in (cpu, dev):
+        n = copy.deepcopy(net).to(where).train()
+        batch = [torch.as_tensor(x).to(where) for x in rows]
+        TL.train_step(n, TL.make_optimizer(n.parameters(), lr, wd), *batch)
+        states.append({k: v.cpu() for k, v in n.state_dict().items()})
+    p_err, far, total = 0.0, 0, 0
+    for k in states[0]:
+        if k.endswith("num_batches_tracked"):
+            continue
+        if "running" in k:
+            torch.testing.assert_close(states[1][k], states[0][k], rtol=1e-5, atol=1e-6, msg=k)
+            continue
+        d = (states[1][k] - states[0][k]).abs()
+        p_err = max(p_err, float(d.max()))
+        far += int((d > 0.05 * lr).sum())
+        total += d.numel()
+    assert far <= STEP_FAR * total, f"{far} of {total} parameters beyond 0.05 lr"
+    assert p_err <= 2 * lr + 1e-7, p_err
+    log(f"  learner step {CHANNELS}ch/{BLOCKS}res f32, B={LEARNER_BATCH}, card vs CPU: losses "
+        f"{l_card.tolist()} vs {l_cpu.tolist()}; worst gradient ratio to tolerance: card "
+        f"{worst['card']:.3g}, CPU {worst['cpu']:.3g}; after one Adam step {far} of {total} "
+        f"parameters beyond 0.05 lr (allowed {STEP_FAR * total:.0f}), max |d param| {p_err:.3g}")
+
+
+def train_config(ckpt_dir: str) -> TC.TrainingConfig:
+    """The ``tpu`` preset's net, fleet and batch; only depth is cut."""
+    cfg = TC.tpu_config()
+    cuts = dict(num_simulations=32, max_game_length=40, num_epochs=1, eval_simulations=32,
+                min_buffer_size=1000, num_iterations=2, eval_interval=2, save_interval=2)
+    for k, v in cuts.items():
+        log(f"  cut: {k} {getattr(cfg, k)} -> {v}")
+        setattr(cfg, k, v)
+    cfg.checkpoint_dir = ckpt_dir
+    return cfg
+
+
+def predicted_launches(cfg: TC.TrainingConfig, stats: list) -> int:
+    """The legal-mask launches the loop's own counters predict: self-play
+    launches once at the reset, once per opening round, once per
+    simulation and once per env step; eval once at the reset and, per ply,
+    once per simulation of each half's search and once per step."""
+    n = 0
+    for it in stats:
+        sp = it["self_play"]
+        n += 1 + cfg.random_opening_moves + sp["simulations"] + sp["plies"]
+        if it["evaluation"]:
+            n += 1 + it["evaluation"]["plies"] * (2 * cfg.eval_simulations + 1)
+    return n
+
+
+def profile_selfplay(dev, trainer, smi: str, plies: int = 2) -> dict:
+    """``torch.profiler`` over ``plies`` plies of the trainer's self-play
+    fleet (after one warm ply): device busy share, kernels per simulation,
+    and the legal-mask kernel's device time per launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s, b = trainer.sp_settings, trainer.cfg.num_games_per_iter
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.inference_mode():
+        carry = TS._init_carry(b, s, gen, dev)
+        body = TS._make_body(policy_logits_fn(trainer.best_net), b, s, True, gen)
+        body(carry)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            sims = sum(body(carry) for _ in range(plies))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_PAD_S)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = sum(e.count for e in kernels)
+    mask = [e for e in kernels if LM.KERNEL_SYMBOL in e.key]
+    mask_n = sum(e.count for e in mask)
+    mask_us = sum(e.self_device_time_total for e in mask) / max(mask_n, 1)
+    out = {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
+           "kernels_per_sim": launches / sims, "mask_us_per_launch": mask_us,
+           "mask_launches": mask_n, "sims": sims}
+    log(f"  profile on {smi}, {plies} self-play plies at B={b} x {s.num_simulations} sims "
+        f"(profiler on): wall {wall:.4f} s, device busy {busy:.4f} s, idle share {out['idle_share']:.4f}, "
+        f"{launches} device kernels ({out['kernels_per_sim']:.1f} per simulation); "
+        f"{LM.KERNEL_SYMBOL} {mask_us:.3f} us per launch over {mask_n} launches")
+    groups = {"net (conv/gemm)": 0.0, LM.KERNEL_SYMBOL: 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        key = (LM.KERNEL_SYMBOL if LM.KERNEL_SYMBOL in name else
+               "net (conv/gemm)" if any(w in name for w in _NET_KERNEL_WORDS) else "other")
+        groups[key] += e.self_device_time_total / 1e6
+    log("  device time by group: " + ", ".join(f"{k} {v:.4f} s" for k, v in groups.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    return out
+
+
+def phase_train(dev, smi: str) -> dict:
+    """The training path: (a) self-play and eval, card == CPU; (b) one
+    learner step, card against CPU; (c) the trainer at full width."""
+    t0 = time.perf_counter()
+    base = TS.SelfPlaySettings(
+        num_simulations=TRAIN_SIMS, max_game_length=TRAIN_PLIES, random_opening_moves=4,
+        enable_resign=True, resign_threshold=-0.1, resign_check_steps=2,
+        temperature_threshold=TRAIN_PLIES + 8)
+    cpu_out = check_selfplay_card_vs_cpu(dev, base, 0.0)
+    check_selfplay_card_vs_cpu(dev, base._replace(temperature_threshold=8), 1e-6)
+    es = EvalSettings(num_simulations=TRAIN_SIMS, max_game_length=TRAIN_PLIES)
+    boards = []
+    finalize = TE._finalize
+
+    def keep_boards(states, *a):
+        boards.append(states.board.cpu())
+        return finalize(states, *a)
+
+    TE._finalize = keep_boards
+    try:
+        with torch.inference_mode():
+            ev = [evaluate_pair(peaked_dyadic_eval(37), peaked_dyadic_eval(53), TRAIN_FLEET,
+                                es, where) for where in (dev, torch.device("cpu"))]
+    finally:
+        TE._finalize = finalize
+    assert torch.equal(ev[0].winners.cpu(), ev[1].winners), "eval winners: card != CPU"
+    assert torch.equal(boards[0], boards[1]), "eval final boards: card != CPU"
+    assert ev[0].plies_run == ev[1].plies_run
+    log(f"  evaluate_pair card == CPU: {TRAIN_FLEET} games, winners {ev[1].winners.tolist()}, "
+        f"{ev[1].plies_run} plies")
+    log(f"  (a) done in {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    check_learner_card_vs_cpu(dev, replay_of(cpu_out, base.max_children))
+    log(f"  (b) done in {time.perf_counter() - t1:.1f} s")
+
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_trainer(dev, tmp, smi)
+    log(f"  (c) done in {time.perf_counter() - t2:.1f} s")
+    return out
+
+
+def run_trainer(dev, ckpt_dir: str, smi: str) -> dict:
+    """(c): two iterations of ``AlphaZeroTrainer.train()`` on the card, the
+    kernel's launches counted around them."""
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("  trainer: %(message)s"))
+    logger = logging.getLogger("xiangqi_az_torch")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    cfg = train_config(ckpt_dir)
+    trainer = AlphaZeroTrainer(cfg, device=dev)
+    step_losses = []
+    train_network = trainer.train_network
+
+    def recording_train_network():
+        stats = train_network()
+        if trainer.last_losses is not None:
+            step_losses.append(trainer.last_losses)
+        return stats
+
+    trainer.train_network = recording_train_network
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = {k["name"]: k["wrapper"].launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    logger.removeHandler(handler)
+
+    stats = trainer.training_stats
+    want = predicted_launches(cfg, stats)
+    assert launches["legal_mask"] == want, f"kernel launches {launches} != predicted {want}"
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} was not launched on the training path"
+    buf = trainer.buffer
+    n = len(buf)
+    probs = buf.pi_probs[:n]
+    row_sums = probs.sum(axis=1)
+    assert (np.abs(row_sums - 1) <= 1e-5).sum() + (row_sums == 0).sum() == n, "pi rows"
+    assert not (probs[buf.pi_actions[:n] < 0] != 0).any(), "pi mass on an empty slot"
+    assert set(np.unique(buf.values[:n]).tolist()) <= {-1.0, 0.0, 1.0}, "z labels"
+    losses = np.concatenate(step_losses).sum(axis=1)
+    assert np.isfinite(losses).all() and len(losses) >= 10, len(losses)
+    tenth = max(len(losses) // 10, 1)
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    assert last < first, (first, last)
+    ev = stats[1]["evaluation"]
+    assert ev and "model_updated" in ev, ev
+
+    # the kernel on boards the fleet played, at the training path's batches:
+    # an eval half (one side's search) and the fleet
+    fleet = cfg.num_games_per_iter
+    rows = np.linspace(0, n - 1, fleet).astype(int)
+    played = to_dev(dev, buf.boards[rows], buf.sides[rows])
+    for b in (cfg.eval_games // 2, fleet):
+        check_kernel(LM.legal_mask_cuda, played[0][:b], played[1][:b])
+    log(f"  kernel vs plain on replay boards at B = {cfg.eval_games // 2}, {fleet}: equal")
+
+    # a fresh trainer restores the checkpoint exactly
+    fresh = AlphaZeroTrainer(cfg, device=dev)
+    fresh.restore(os.path.join(ckpt_dir, f"checkpoint_iter{cfg.num_iterations}"))
+    for a, b in ((fresh.net, trainer.net), (fresh.best_net, trainer.best_net)):
+        for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            assert torch.equal(x, y), k
+    assert_same_tree(fresh.opt.state_dict(), trainer.opt.state_dict())
+    assert torch.equal(fresh.rng.get_state(), trainer.rng.get_state())
+    assert fresh.np_rng.bit_generator.state == trainer.np_rng.bit_generator.state
+    assert fresh.iteration == trainer.iteration and fresh.total_games == trainer.total_games
+    del fresh
+
+    # the best model serves on the card
+    pred = Predictor.load(os.path.join(ckpt_dir, "best_model.pt"), num_simulations=32,
+                          device=dev)
+    pos = Position()
+    move = pred.ai_move(pos)["ai_move"]["action"]
+    assert move in Position().legal_actions(), move
+    log(f"  best_model.pt served on the card: AI move {move} is legal")
+
+    prof = profile_selfplay(dev, trainer, smi)
+    sp = [it["self_play"] for it in stats]
+    tr = [it["training"] for it in stats if it["training"]]
+    b = cfg.num_games_per_iter
+    sp_s = sum(x["time"] for x in sp)
+    rates = {
+        "selfplay_games_per_s": sum(x["games"] for x in sp) / sp_s,
+        "selfplay_sims_per_s": b * sum(x["simulations"] for x in sp) / sp_s,
+        "selfplay_s_per_ply": sp_s / sum(x["plies"] for x in sp),
+        "train_steps_per_s": sum(x["batches"] for x in tr) / sum(x["time"] for x in tr),
+        "train_samples_per_s": cfg.batch_size * sum(x["batches"] for x in tr)
+        / sum(x["time"] for x in tr),
+        "eval_s": ev["time"],
+        "iteration_s": [it["time"] for it in stats],
+        "peak_memory_bytes": peak,
+    }
+    log(f"  training path on {smi}: " + json.dumps(rates))
+    log(f"  losses: first tenth {first:.4f}, last tenth {last:.4f} over {len(losses)} steps; "
+        f"eval {ev}; kernel launches {launches} == predicted {want}")
+    return {"launches": launches, "rates": rates, "profile": prof}
+
+
+def assert_same_tree(a, b, path="") -> None:
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            assert_same_tree(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same_tree(x, y, f"{path}/{i}")
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a.cpu(), b.cpu()), path
+    else:
+        assert a == b, path
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean ms per call over ``iters`` calls, timed with CUDA events after
     a warm-up."""
@@ -546,6 +1032,7 @@ def phase_timings(dev, playouts, net, dense) -> dict:
     for b in TIMED_BATCHES:
         bb, ss = timed_inputs(dev, playouts, b)
         assert len(bb) == b
+        check_kernel(kern, bb, ss)   # the timed boards give the plain version's mask
         iters = 200 if b <= 8 else (50 if b <= 2048 else 20)
         fns = {"new": lambda: kern(bb, ss)}
         if dense is not None:
@@ -656,23 +1143,34 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
 
-    device = phase_device()
-    phase_build(args.dense_baseline)
+    phases = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phases[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phases[name]:.1f} s")
+        return out
+
+    device = timed("1 device", phase_device)
+    timed("2 build", phase_build, args.dense_baseline)
     dense = DenseBaseline(args.dense_baseline, dev) if args.dense_baseline else None
     playouts = random_boards(dev, BOARDS, PLIES, SEED)
-    err = phase_kernel(dev, playouts)
-    phase_search(dev)
+    err = timed("3 kernel", phase_kernel, dev, playouts)
+    timed("4 search", phase_search, dev)
     with tempfile.TemporaryDirectory() as tmp:
         name = f"random_{CHANNELS}x{BLOCKS}.pt"
         write_random_pt(os.path.join(tmp, name), SEED)
-        net = phase_net(dev, os.path.join(tmp, name))
-        serve = phase_serve(dev, tmp, name, SIMS, SEED)
-    timings = phase_timings(dev, playouts, net, dense)
-    phase_profile(dev, net, PROFILE_SIMS)
+        net = timed("5 net", phase_net, dev, os.path.join(tmp, name))
+        serve = timed("6 serve", phase_serve, dev, tmp, name, SIMS, SEED)
+    train = timed("6b train", phase_train, dev, device["smi"])
+    timings = timed("7 timings", phase_timings, dev, playouts, net, dense)
+    timed("8 profile", phase_profile, dev, net, PROFILE_SIMS)
     log(f"AI move latency at {SIMS} sims: "
         f"{[round(x, 4) for x in serve['ai_move_s']]} s; 4 concurrent session moves: "
         f"{[round(x, 4) for x in serve['session_move_s']]} s; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"total {time.perf_counter() - t_start:.1f} s; phases (s) "
+        f"{ {k: round(v, 1) for k, v in phases.items()} }")
 
     kernels = []
     rows = timings["rows"]
@@ -681,6 +1179,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"], "launches": serve["launches"][k["name"]],
+            "launches_by_path": {"serve": serve["launches"][k["name"]],
+                                 "train": train["launches"][k["name"]]},
             "max_abs_err": err, "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": k["library_ms"],

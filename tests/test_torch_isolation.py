@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: importing every one of its modules loads
-no JAX, flax, orbax or ``xiangqi_alphazero_tpu`` module, its sources and
+no JAX, flax, optax, orbax or ``xiangqi_alphazero_tpu`` module, its sources and
 ``chip_smoke.py`` import none of them, and its entry points refuse to fall
 back to the CPU when CUDA is missing and the caller did not ask for the
 CPU."""
@@ -20,7 +20,7 @@ from xiangqi_alphazero_torch.serve import __main__ as cli
 from xiangqi_alphazero_torch.serve import api as TA
 from xiangqi_alphazero_torch.serve import predictor as TP
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "xiangqi_alphazero_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "xiangqi_alphazero_tpu")
 _PKG_DIR = os.path.dirname(xiangqi_alphazero_torch.__file__)
 _REPO = os.path.dirname(_PKG_DIR)
 
@@ -38,6 +38,8 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_module_loads_no_jax():
     names = _module_names()
     assert "xiangqi_alphazero_torch.ops.legal_mask" in names
+    # the training package and its trainer, imported by name as well
+    names += ["xiangqi_alphazero_torch.train", "xiangqi_alphazero_torch.train.trainer"]
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"

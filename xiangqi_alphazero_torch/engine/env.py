@@ -80,11 +80,12 @@ class EnvState:
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
 
+    def map(self, fn) -> "EnvState":
+        """A state of ``fn`` applied to every field (all are batch-major)."""
+        return EnvState(**{f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
+
     def to(self, device) -> "EnvState":
-        return EnvState(**{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-        })
+        return self.map(lambda x: x.to(device))
 
 
 def cat_states(states: Sequence[EnvState]) -> EnvState:

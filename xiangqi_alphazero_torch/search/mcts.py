@@ -30,9 +30,10 @@ Differences from the JAX package, none of which changes a result:
   stopped (the JAX package vmaps a ``while_loop``); the backup adds each
   path edge's count and signed value directly into ``ew`` (every path
   touches each edge once, so this equals the one-hot contraction).
-- Random draws come from an explicit ``torch.Generator``; JAX and torch
-  streams differ, so tests compare with the noise off or with injected
-  draws.
+- Random draws come from an explicit ``torch.Generator`` and are made on
+  its device (``_gamma``, ``_gumbel``): with a CPU generator the card and
+  the CPU search alike. JAX and torch streams differ, so tests compare with
+  the noise off or with injected draws.
 """
 
 from __future__ import annotations
@@ -336,10 +337,23 @@ def _backup(tree: Tree, pnode, pslot, depth, v) -> None:
     )
 
 
+def _draw_device(generator: Optional[torch.Generator], device) -> torch.device:
+    """Draws are made where ``generator`` lives (a CPU generator gives the
+    card and the CPU the same draws), else on ``device``."""
+    return torch.device(device) if generator is None else generator.device
+
+
 def _gamma(alpha: float, shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """Gamma(alpha, 1) draws for the Dirichlet root noise."""
-    conc = torch.full(shape, alpha, dtype=torch.float32, device=device)
-    return torch._standard_gamma(conc, generator=generator)
+    """Gamma(alpha, 1) draws for the Dirichlet root noise, on ``device``."""
+    conc = torch.full(shape, alpha, dtype=torch.float32,
+                      device=_draw_device(generator, device))
+    return torch._standard_gamma(conc, generator=generator).to(device)
+
+
+def _gumbel(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard Gumbel draws for action sampling, on ``device``."""
+    u = torch.rand(shape, generator=generator, device=_draw_device(generator, device))
+    return (-torch.log(-torch.log(u.clamp(min=1e-20)))).to(device)
 
 
 def run_mcts(
@@ -486,7 +500,6 @@ def sample_actions(
         torch.log(counts.clamp(min=1e-30)) / t_safe[:, None],
         -torch.inf,
     )
-    u = torch.rand(counts.shape, generator=generator, device=counts.device)
-    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
+    gumbel = _gumbel(counts.shape, generator, counts.device)
     slot = torch.where(t == 0.0, greedy_slots(result), (logw + gumbel).argmax(dim=-1))
     return result.actions.gather(1, slot[:, None])[:, 0]

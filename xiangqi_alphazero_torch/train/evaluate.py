@@ -1,0 +1,113 @@
+"""Gated model evaluation: candidate vs incumbent, alternating colors.
+
+Port of ``xiangqi_alphazero_tpu.train.evaluate``. Reference semantics
+(training/train.py:449-535): temperature 0 and no root noise,
+eval_simulations per move; a game not finished at max_game_length is a draw
+(no material adjudication here, unlike self-play); win_rate = (wins +
+0.5*draws) / games, promotion at >= eval_win_rate (in the trainer).
+
+All eval games run in one lockstep batch, split into contiguous color halves
+(the candidate is red in the first half). Eval games start from the initial
+position with no openings, so every live game sits at the same ply: at each
+ply exactly one model is to move in each half, and each model searches only
+its half. The match is a host loop, one ply per iteration; the search and
+the pick are deterministic, so no generator is needed.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..engine import env as E
+from ..search import mcts as M
+
+
+class EvalSettings(NamedTuple):
+    num_simulations: int = 100
+    c_puct: float = 1.5
+    max_children: int = 128
+    max_game_length: int = 300
+
+
+class EvalOut(NamedTuple):
+    new_wins: torch.Tensor
+    old_wins: torch.Tensor
+    draws: torch.Tensor
+    winners: torch.Tensor     # int8[B] (+1 red, -1 black, 0 draw)
+    new_is_red: torch.Tensor  # bool[B]
+    avg_plies: torch.Tensor   # f32 scalar, mean game length
+    plies_run: int = 0        # plies the loop ran (each: two searches, one step)
+
+
+def _greedy(res: M.SearchResult) -> torch.Tensor:
+    # reference temp-0 pick: first max-visit child in movegen order
+    slot = M.greedy_slots(res)
+    return res.actions.gather(1, slot[:, None])[:, 0]
+
+
+def _make_body(eval_new: Callable, eval_old: Callable, batch: int,
+               s: EvalSettings, logits_eval: bool) -> Callable:
+    """Per-ply body of the color-halved lockstep match: (states, t) ->
+    states."""
+    half = batch // 2
+    mcfg = M.MCTSConfig(s.num_simulations, s.c_puct, max_children=s.max_children)
+
+    def body(states: E.EnvState, t: int) -> E.EnvState:
+        # red moves at even plies; order the batch so the candidate's games
+        # come first, search each half with only its mover's model, then
+        # restore the order
+        new_first = t % 2 == 0   # the candidate is red in the first half
+        ordered = states if new_first else states.map(
+            lambda x: torch.cat([x[half:], x[:half]]))
+        top, bot = ordered.map(lambda x: x[:half]), ordered.map(lambda x: x[half:])
+        res_new = M.run_mcts(eval_new, top, mcfg, add_noise=False, logits_eval=logits_eval)
+        res_old = M.run_mcts(eval_old, bot, mcfg, add_noise=False, logits_eval=logits_eval)
+        act = torch.cat([_greedy(res_new), _greedy(res_old)])
+        if not new_first:
+            act = torch.cat([act[half:], act[:half]])
+        return E.step_batch(states, act)
+
+    return body
+
+
+def _finalize(states: E.EnvState, batch: int, plies_run: int) -> EvalOut:
+    half = batch // 2
+    dev = states.board.device
+    new_is_red = torch.arange(batch, device=dev) < half
+    winners = torch.where(states.done, states.winner, 0).to(torch.int8)
+    new_won = ((winners == 1) & new_is_red) | ((winners == -1) & ~new_is_red)
+    old_won = ((winners == -1) & new_is_red) | ((winners == 1) & ~new_is_red)
+    return EvalOut(
+        new_wins=new_won.sum(dtype=torch.int32),
+        old_wins=old_won.sum(dtype=torch.int32),
+        draws=(winners == 0).sum(dtype=torch.int32),
+        winners=winners,
+        new_is_red=new_is_red,
+        avg_plies=states.ply.float().mean(),
+        plies_run=plies_run,
+    )
+
+
+def evaluate_pair(
+    eval_new: Callable,
+    eval_old: Callable,
+    batch: int,
+    s: EvalSettings,
+    device,
+    logits_eval: bool = False,
+) -> EvalOut:
+    """Play the match of ``batch`` games (even: two color halves) on
+    ``device``. ``eval_new``/``eval_old`` map features to (policy or
+    logits, value), as for ``run_mcts``. Call under
+    ``torch.inference_mode()`` with both nets in eval mode."""
+    if batch % 2:
+        raise ValueError("eval batch must be even (color halves)")
+    body = _make_body(eval_new, eval_old, batch, s, logits_eval)
+    states = E.reset_batch(batch, device=torch.device(device))
+    t = 0
+    while t < s.max_game_length and not bool(states.done.all()):
+        states = body(states, t)
+        t += 1
+    return _finalize(states, batch, t)
