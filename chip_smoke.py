@@ -57,6 +57,21 @@ and carried on):
    fleet's replay boards at an eval half (32) and at the fleet (512). It
    prints the training path's rates, peak memory and a ``torch.profiler``
    reading of 2 self-play plies;
+6c. gumbel, the Gumbel paths: (a) ``run_gumbel_mcts`` at 8 positions x 64
+   simulations, m = 16, with the dyadic mock network and root draws from
+   CPU generators of one seed: visits, chosen, actions and order on the
+   card exactly the CPU's, pi_improved within 1e-6, and lane 0 alone
+   equal to lane 0 of the batch; (b) the HTTP API with
+   ``search_algo="gumbel"`` on the same ``.pt`` as phase 6: three AI moves
+   at 500 and three at 32 simulations, each launching the kernel exactly
+   once for its root state and once per simulation, and four coalesced
+   session moves, each acting a move its search visited; (c) the trainer
+   of 6b (c) with ``search_algo="gumbel"`` at 32 simulations (the same
+   cuts, logged), its launches equal to the loop's prediction, the kernel
+   equal to its plain version on the fleet's boards, rates and a profile
+   of 2 plies; (d) an arena match, Gumbel-32 against PUCT-32 on one net,
+   16 games, a 40-ply cap: counts that sum to the games, launches equal to
+   1 + plies x (2 x 32 + 1);
 7. timings: the kernel at B = 1 (the opening) and 2, 4, 8, 32 (an eval
    half of the ``tpu`` preset), 256 (half of a 512-game eval), 512 (the
    ``tpu`` fleet), 2048, 16384 (mid-game boards), each first checked
@@ -65,8 +80,10 @@ and carried on):
    device time of a fill of the same bytes (a floor) and its plain
    version, and beside the dense baseline when given (old, new, new, old); the device time of each split of a row over blocks at B = 1..8;
    the net forward at B = 1 and 8 (CUDA events);
-8. ``torch.profiler`` over one search of 100 simulations, for where an AI
-   move's time goes (device busy share, launches, top kernels, host ops).
+8. ``torch.profiler`` over one search of 100 simulations, PUCT and then
+   Gumbel, for where an AI move's time goes (device busy share, launches, top kernels, host ops);
+   then one search of the opening at 500 simulations by each, timed
+   without the profiler, interleaved (PUCT, Gumbel, Gumbel, PUCT).
 
 The line before the last lists each kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero before
@@ -76,6 +93,7 @@ printing any result.
 import argparse
 import copy
 import ctypes
+import gc
 import json
 import logging
 import os
@@ -102,9 +120,10 @@ from xiangqi_alphazero_torch.models import (
 )
 from xiangqi_alphazero_torch.ops import _build
 from xiangqi_alphazero_torch.ops import legal_mask as LM
-from xiangqi_alphazero_torch.search import MCTSConfig, run_mcts
+from xiangqi_alphazero_torch.search import GumbelConfig, MCTSConfig, run_gumbel_mcts, run_mcts
 from xiangqi_alphazero_torch.serve.api import make_server
 from xiangqi_alphazero_torch.serve.predictor import Predictor
+from xiangqi_alphazero_torch.train import arena as TARENA
 from xiangqi_alphazero_torch.train import config as TC
 from xiangqi_alphazero_torch.train import learner as TL
 from xiangqi_alphazero_torch.train import selfplay as TS
@@ -376,15 +395,55 @@ class Client:
             return e.code, json.loads(e.read())
 
 
-def phase_serve(dev, model_dir: str, model_name: str, sims: int, seed: int) -> dict:
-    """The main path: the HTTP API on the card. Returns latencies and the
-    launch counts of this phase."""
-    httpd, service = make_server("127.0.0.1", 0, [model_dir], device=dev)
+def play_global_game(api, sims: int, seed: int, exact: bool) -> tuple:
+    """A new global game at ``sims`` simulations and three human moves,
+    each AI reply legal by the oracle. Returns the AI moves' latencies and
+    kernel launches; with ``exact`` each move must launch the kernel once
+    for the root's state and once per simulation."""
+    kern = LM.legal_mask_cuda
+    code, res = api("/api/new_game", {"human_side": "red", "num_simulations": sims})
+    assert code == 200 and res["current_player"] == 1, res
+    pos = Position()
+    rng = np.random.default_rng(seed)
+    times, launches = [], []
+    for move in range(3):
+        a = int(rng.choice(pos.legal_actions()))
+        fr, fc, tr, tc = decode_action(a)
+        before = kern.launches
+        t0 = time.perf_counter()
+        code, res = api("/api/human_move", {"from_row": fr, "from_col": fc,
+                                             "to_row": tr, "to_col": tc})
+        dt = time.perf_counter() - t0
+        assert code == 200, res
+        pos.apply(a)
+        ai = res["ai_move"]["action"]
+        assert ai in pos.legal_actions(), f"illegal AI move {ai}"
+        pos.apply(ai)
+        assert res["board"] == pos.board_array().reshape(10, 9).tolist()
+        launched = kern.launches - before
+        assert launched == 1 + sims if exact else launched >= 1 + sims, launched
+        times.append(dt)
+        launches.append(launched)
+        log(f"human_move {move + 1}: AI reply {res['ai_move']['label']} in "
+            f"{dt:.3f} s ({sims} sims, {launched} kernel launches)")
+    return times, launches
+
+
+def phase_serve(dev, model_dir: str, model_name: str, sims: int, seed: int,
+                search_algo: str = "puct", more_sims=()) -> dict:
+    """The main path: the HTTP API on the card, with the PUCT search or the
+    Gumbel search (``search_algo``). Returns latencies and the launch
+    counts of this phase. ``more_sims`` are further depths of the global
+    game. With Gumbel each AI move's launches are asserted exactly (the
+    root's state, then one per simulation: the root reuses its legal mask),
+    and each coalesced session reply must act a move its search visited."""
+    gumbel = search_algo == "gumbel"
+    httpd, service = make_server("127.0.0.1", 0, [model_dir], device=dev,
+                                 search_algo=search_algo)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     api = Client("http://127.0.0.1:%d" % httpd.server_address[1])
-    kern = LM.legal_mask_cuda
-    out = {"ai_move_s": [], "session_move_s": []}
+    out = {"ai_move_s_by_sims": {}, "launches_per_move": {}, "session_move_s": []}
     try:
         for k in KERNELS:
             k["wrapper"].launches = 0
@@ -392,35 +451,17 @@ def phase_serve(dev, model_dir: str, model_name: str, sims: int, seed: int) -> d
         code, res = api("/api/load_model", {"model_name": model_name, "num_simulations": sims})
         assert code == 200 and res["success"], res
         out["load_model_s"] = time.perf_counter() - t0
-        log(f"load_model ({sims} sims, warm-up search included): "
+        log(f"load_model ({search_algo}, {sims} sims, warm-up search included): "
             f"{out['load_model_s']:.3f} s on {res['device']}")
         code, res = api("/api/models")
         assert code == 200 and res["device"] == torch.cuda.get_device_name(0), res
         assert all(p.device.type == dev.type for p in service.predictor.net.parameters())
+        assert service.predictor.algo == search_algo
 
-        code, res = api("/api/new_game", {"human_side": "red", "num_simulations": sims})
-        assert code == 200 and res["current_player"] == 1, res
-        pos = Position()
-        rng = np.random.default_rng(seed)
-        for move in range(3):
-            a = int(rng.choice(pos.legal_actions()))
-            fr, fc, tr, tc = decode_action(a)
-            before = kern.launches
-            t0 = time.perf_counter()
-            code, res = api("/api/human_move", {"from_row": fr, "from_col": fc,
-                                                 "to_row": tr, "to_col": tc})
-            dt = time.perf_counter() - t0
-            assert code == 200, res
-            pos.apply(a)
-            ai = res["ai_move"]["action"]
-            assert ai in pos.legal_actions(), f"illegal AI move {ai}"
-            pos.apply(ai)
-            assert res["board"] == pos.board_array().reshape(10, 9).tolist()
-            launched = kern.launches - before
-            assert launched >= 1 + sims, launched
-            out["ai_move_s"].append(dt)
-            log(f"human_move {move + 1}: AI reply {res['ai_move']['label']} in "
-                f"{dt:.3f} s ({sims} sims, {launched} kernel launches)")
+        for n in (sims,) + tuple(more_sims):
+            out["ai_move_s_by_sims"][n], out["launches_per_move"][n] = play_global_game(
+                api, n, seed, exact=gumbel)
+        out["ai_move_s"] = out["ai_move_s_by_sims"][sims]
         code, res = api("/api/human_move", {"from_row": 0, "from_col": 0,
                                              "to_row": 5, "to_col": 5})
         assert code == 400, res
@@ -451,11 +492,19 @@ def phase_serve(dev, model_dir: str, model_name: str, sims: int, seed: int) -> d
         for code, res, dt in replies:
             assert code == 200, res
             assert res["ai_move"]["action"] in start.legal_actions(), res["ai_move"]
+            if gumbel:
+                # chosen is acted (the board shows it) and was visited (the
+                # analysis lists only visited moves)
+                sel = [m for m in res["ai_analysis"]["top_moves"] if m["selected"]]
+                assert len(sel) == 1 and sel[0]["action"] == res["ai_move"]["action"], res
+                after = start.copy()
+                after.apply(res["ai_move"]["action"])
+                assert res["board"] == after.board_array().reshape(10, 9).tolist()
             out["session_move_s"].append(dt)
         code, stats = api("/api/session/stats")
         assert code == 200 and stats["search"]["mean_batch"] > 1, stats
-        log(f"4 concurrent session moves: {[round(x, 3) for x in out['session_move_s']]} s, "
-            f"search stats {stats['search']}")
+        log(f"4 concurrent session moves ({search_algo}): "
+            f"{[round(x, 3) for x in out['session_move_s']]} s, search stats {stats['search']}")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -465,7 +514,7 @@ def phase_serve(dev, model_dir: str, model_name: str, sims: int, seed: int) -> d
     out["launches"] = {k["name"]: k["wrapper"].launches for k in KERNELS}
     for name, n in out["launches"].items():
         assert n > 0, f"kernel {name} was not launched on the main path"
-    log(f"main path kernel launches: {out['launches']}")
+    log(f"{search_algo} serving path kernel launches: {out['launches']}")
     return out
 
 
@@ -686,13 +735,17 @@ def check_learner_card_vs_cpu(dev, buf: ReplayBuffer) -> None:
         f"parameters beyond 0.05 lr (allowed {STEP_FAR * total:.0f}), max |d param| {p_err:.3g}")
 
 
-def train_config(ckpt_dir: str) -> TC.TrainingConfig:
-    """The ``tpu`` preset's net, fleet and batch; only depth is cut."""
+def train_config(ckpt_dir: str, **options) -> TC.TrainingConfig:
+    """The ``tpu`` preset's net, fleet and batch; only depth is cut.
+    ``options`` set the rest (the search algorithm)."""
     cfg = TC.tpu_config()
     cuts = dict(num_simulations=32, max_game_length=40, num_epochs=1, eval_simulations=32,
                 min_buffer_size=1000, num_iterations=2, eval_interval=2, save_interval=2)
     for k, v in cuts.items():
         log(f"  cut: {k} {getattr(cfg, k)} -> {v}")
+        setattr(cfg, k, v)
+    for k, v in options.items():
+        log(f"  option: {k} {getattr(cfg, k)} -> {v}")
         setattr(cfg, k, v)
     cfg.checkpoint_dir = ckpt_dir
     return cfg
@@ -701,7 +754,8 @@ def train_config(ckpt_dir: str) -> TC.TrainingConfig:
 def predicted_launches(cfg: TC.TrainingConfig, stats: list) -> int:
     """The legal-mask launches the loop's own counters predict: self-play
     launches once at the reset, once per opening round, once per
-    simulation and once per env step; eval once at the reset and, per ply,
+    simulation and once per env step (with PUCT and with Gumbel alike: each
+    root reuses its state's mask); eval once at the reset and, per ply,
     once per simulation of each half's search and once per step."""
     n = 0
     for it in stats:
@@ -800,15 +854,16 @@ def phase_train(dev, smi: str) -> dict:
     return out
 
 
-def run_trainer(dev, ckpt_dir: str, smi: str) -> dict:
+def run_trainer(dev, ckpt_dir: str, smi: str, **options) -> dict:
     """(c): two iterations of ``AlphaZeroTrainer.train()`` on the card, the
-    kernel's launches counted around them."""
+    kernel's launches counted around them; ``options`` as for
+    ``train_config``."""
     handler = logging.StreamHandler(sys.stdout)
     handler.setFormatter(logging.Formatter("  trainer: %(message)s"))
     logger = logging.getLogger("xiangqi_az_torch")
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
-    cfg = train_config(ckpt_dir)
+    cfg = train_config(ckpt_dir, **options)
     trainer = AlphaZeroTrainer(cfg, device=dev)
     step_losses = []
     train_network = trainer.train_network
@@ -820,6 +875,9 @@ def run_trainer(dev, ckpt_dir: str, smi: str) -> dict:
         return stats
 
     trainer.train_network = recording_train_network
+    # an earlier trainer of this script lives on in its reference cycle (the
+    # method patched above) until a collection: free it before the peak
+    gc.collect()
     torch.cuda.reset_peak_memory_stats(dev)
     for k in KERNELS:
         k["wrapper"].launches = 0
@@ -872,11 +930,11 @@ def run_trainer(dev, ckpt_dir: str, smi: str) -> dict:
 
     # the best model serves on the card
     pred = Predictor.load(os.path.join(ckpt_dir, "best_model.pt"), num_simulations=32,
-                          device=dev)
+                          algo=cfg.search_algo, device=dev)
     pos = Position()
     move = pred.ai_move(pos)["ai_move"]["action"]
     assert move in Position().legal_actions(), move
-    log(f"  best_model.pt served on the card: AI move {move} is legal")
+    log(f"  best_model.pt served on the card ({cfg.search_algo}): AI move {move} is legal")
 
     prof = profile_selfplay(dev, trainer, smi)
     sp = [it["self_play"] for it in stats]
@@ -894,10 +952,88 @@ def run_trainer(dev, ckpt_dir: str, smi: str) -> dict:
         "iteration_s": [it["time"] for it in stats],
         "peak_memory_bytes": peak,
     }
-    log(f"  training path on {smi}: " + json.dumps(rates))
+    log(f"  training path ({cfg.search_algo} self-play) on {smi}: " + json.dumps(rates))
     log(f"  losses: first tenth {first:.4f}, last tenth {last:.4f} over {len(losses)} steps; "
         f"eval {ev}; kernel launches {launches} == predicted {want}")
     return {"launches": launches, "rates": rates, "profile": prof}
+
+
+# ------------------------------------------------------------ Gumbel path
+
+GUMBEL_FLEET, GUMBEL_SIMS, GUMBEL_M = 8, 64, 16           # (a): card against CPU
+ARENA_GAMES, ARENA_SIMS, ARENA_PLIES = 16, 32, 40         # (d)
+
+
+def check_gumbel_card_vs_cpu(dev) -> None:
+    """(a): ``run_gumbel_mcts`` with the dyadic mock network on the card
+    and on the CPU, the root draws from CPU generators of one seed:
+    visits, chosen, actions and order exactly equal, pi_improved within
+    1e-6; and lane 0 alone (width 1) equals lane 0 of the width-8 batch on
+    the card."""
+    cases = [advance_random(3 * i, 40 + i) for i in range(GUMBEL_FLEET)]
+    roots = E.cat_states([E.state_from_numpy(np.asarray(p.board, np.int8), p.side)
+                          for p in cases])
+    cfg = GumbelConfig(num_simulations=GUMBEL_SIMS, max_considered=GUMBEL_M)
+
+    def search(r):
+        return run_gumbel_mcts(dyadic_eval, r, cfg, generator=torch.Generator().manual_seed(SEED))
+
+    with torch.inference_mode():
+        cpu, card = search(roots), search(roots.to(dev))
+        solo = search(roots.to(dev).map(lambda x: x[:1]))
+    for f in ("visits", "chosen", "actions", "order", "valid"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f"gumbel {f}: card != CPU"
+    err = float((card.pi_improved.cpu() - cpu.pi_improved).abs().max())
+    assert err <= 1e-6, f"gumbel pi_improved: card != CPU by {err}"
+    for f in ("visits", "chosen", "order"):
+        assert torch.equal(getattr(solo, f)[0], getattr(card, f)[0]), f"lane 0 {f}: width 1 != 8"
+    log(f"  (a) Gumbel search on the card == CPU: {GUMBEL_FLEET} positions x {GUMBEL_SIMS} sims, "
+        f"m = {GUMBEL_M}; chosen {card.chosen.tolist()}, visited slots "
+        f"{(card.visits > 0).sum(dim=1).tolist()}; pi_improved max |d| {err:.3g}; "
+        f"lane 0 at width 1 == width 8")
+
+
+def run_arena(dev, pt: str) -> dict:
+    """(d): Gumbel-32 against PUCT-32 on the card, one net on both sides;
+    the kernel's launches must be 1 (the reset) + per ply the two halves'
+    simulations and one env step."""
+    net = load_reference_pt(pt).to(dev).eval()
+    s = TARENA.ArenaSettings(num_simulations=ARENA_SIMS, max_game_length=ARENA_PLIES,
+                             algo_a="gumbel", algo_b="puct")
+    kern = LM.legal_mask_cuda
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    t0 = time.perf_counter()
+    out = TARENA.make_hosted_arena(net, net, ARENA_GAMES, s, dev)(
+        torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = kern.launches
+    assert out["a_wins"] + out["b_wins"] + out["draws"] == ARENA_GAMES, out
+    want = 1 + out["plies_run"] * (2 * ARENA_SIMS + 1)
+    assert out["launches"] == want, f"arena launches {out['launches']} != predicted {want}"
+    log(f"  (d) arena gumbel-{ARENA_SIMS} (a) vs puct-{ARENA_SIMS} (b), {ARENA_GAMES} games, "
+        f"{ARENA_PLIES}-ply cap: " + json.dumps(out))
+    return out
+
+
+def phase_gumbel(dev, model_dir: str, model_name: str, smi: str) -> dict:
+    """The Gumbel paths: (a) the search, card == CPU; (b) serving at the
+    shipped width, 500 and 32 simulations; (c) Gumbel training at the
+    ``tpu`` preset's width and fleet; (d) an arena match."""
+    t0 = time.perf_counter()
+    check_gumbel_card_vs_cpu(dev)
+    t1 = time.perf_counter()
+    serve = phase_serve(dev, model_dir, model_name, SIMS, SEED + 1, search_algo="gumbel",
+                        more_sims=(32,))
+    log(f"  (b) done in {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        train = run_trainer(dev, ckpt, smi, search_algo="gumbel")
+    log(f"  (c) done in {time.perf_counter() - t2:.1f} s")
+    arena = run_arena(dev, os.path.join(model_dir, model_name))
+    log(f"  (a)-(d) in {time.perf_counter() - t0:.1f} s")
+    return {"serve": serve, "train": train, "arena": arena}
 
 
 def assert_same_tree(a, b, path="") -> None:
@@ -1089,12 +1225,13 @@ def phase_timings(dev, playouts, net, dense) -> dict:
 _NET_KERNEL_WORDS = ("conv", "gemm", "cudnn", "xmma", "cutlass", "implicit", "winograd")
 
 
-def phase_profile(dev, net, sims: int) -> None:
+def phase_profile(dev, net, sims: int, algo: str = "puct") -> None:
     """Where one AI move's time goes: ``torch.profiler`` over one search of
-    the opening at ``sims`` simulations, on a warmed predictor."""
+    the opening at ``sims`` simulations with the ``algo`` search, on a
+    warmed predictor."""
     from torch.profiler import ProfilerActivity, profile
 
-    pred = Predictor(net, num_simulations=sims, device=dev)
+    pred = Predictor(net, num_simulations=sims, algo=algo, device=dev)
     pos = Position()
     pred.search_position(pos)
     torch.cuda.synchronize()
@@ -1108,7 +1245,7 @@ def phase_profile(dev, net, sims: int) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     launches = sum(e.count for e in kernels)
-    log(f"profile, one search of {sims} sims (profiler on): wall {wall:.4f} s, "
+    log(f"profile, one {algo} search of {sims} sims (profiler on): wall {wall:.4f} s, "
         f"device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}, "
         f"{launches} device kernels ({launches / sims:.1f} per simulation)")
     groups = {"net (conv/gemm)": 0.0, LM.KERNEL_SYMBOL: 0.0, "other": 0.0}
@@ -1125,6 +1262,30 @@ def phase_profile(dev, net, sims: int) -> None:
     log(f"  host: {sum(e.count for e in host)} profiled ops; top by self CPU time:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
         log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+
+
+def phase_profiles(dev, net) -> dict:
+    """Phase 8: each search profiled at ``PROFILE_SIMS``, then one search
+    of the opening at ``SIMS`` simulations by each, timed without the
+    profiler in the order PUCT, Gumbel, Gumbel, PUCT: the two searches
+    compared in the same conditions (earlier phases' order and profiler
+    windows do not favour either). Returns the mean seconds of each."""
+    for algo in ("puct", "gumbel"):
+        phase_profile(dev, net, PROFILE_SIMS, algo)
+    preds = {a: Predictor(net, num_simulations=SIMS, algo=a, device=dev)
+             for a in ("puct", "gumbel")}
+
+    def one_search(pred):
+        t0 = time.perf_counter()
+        pred.search_position(Position())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = interleaved(preds, one_search)
+    log(f"one search of the opening at {SIMS} sims, no profiler, interleaved (puct, gumbel, "
+        f"gumbel, puct): puct {out['puct']:.4f} s, gumbel {out['gumbel']:.4f} s, "
+        f"ratio {out['gumbel'] / out['puct']:.3f}")
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -1163,12 +1324,15 @@ def main(argv=None) -> int:
         write_random_pt(os.path.join(tmp, name), SEED)
         net = timed("5 net", phase_net, dev, os.path.join(tmp, name))
         serve = timed("6 serve", phase_serve, dev, tmp, name, SIMS, SEED)
-    train = timed("6b train", phase_train, dev, device["smi"])
+        train = timed("6b train", phase_train, dev, device["smi"])
+        gumbel = timed("6c gumbel", phase_gumbel, dev, tmp, name, device["smi"])
     timings = timed("7 timings", phase_timings, dev, playouts, net, dense)
-    timed("8 profile", phase_profile, dev, net, PROFILE_SIMS)
+    search_s = timed("8 profile", phase_profiles, dev, net)
     log(f"AI move latency at {SIMS} sims: "
         f"{[round(x, 4) for x in serve['ai_move_s']]} s; 4 concurrent session moves: "
-        f"{[round(x, 4) for x in serve['session_move_s']]} s; "
+        f"{[round(x, 4) for x in serve['session_move_s']]} s; Gumbel AI move latency "
+        f"by sims: { {n: [round(x, 4) for x in v] for n, v in gumbel['serve']['ai_move_s_by_sims'].items()} } s; "
+        f"one {SIMS}-sim search, interleaved: { {k: round(v, 4) for k, v in search_s.items()} } s; "
         f"total {time.perf_counter() - t_start:.1f} s; phases (s) "
         f"{ {k: round(v, 1) for k, v in phases.items()} }")
 
@@ -1180,7 +1344,10 @@ def main(argv=None) -> int:
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"], "launches": serve["launches"][k["name"]],
             "launches_by_path": {"serve": serve["launches"][k["name"]],
-                                 "train": train["launches"][k["name"]]},
+                                 "train": train["launches"][k["name"]],
+                                 "gumbel_serve": gumbel["serve"]["launches"][k["name"]],
+                                 "gumbel_train": gumbel["train"]["launches"][k["name"]],
+                                 "arena": gumbel["arena"]["launches"]},
             "max_abs_err": err, "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": k["library_ms"],

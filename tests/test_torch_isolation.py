@@ -38,8 +38,11 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_module_loads_no_jax():
     names = _module_names()
     assert "xiangqi_alphazero_torch.ops.legal_mask" in names
-    # the training package and its trainer, imported by name as well
-    names += ["xiangqi_alphazero_torch.train", "xiangqi_alphazero_torch.train.trainer"]
+    # the training package, its trainer, the Gumbel search, the arena and
+    # the Elo ladder, imported by name as well
+    names += ["xiangqi_alphazero_torch.train", "xiangqi_alphazero_torch.train.trainer",
+              "xiangqi_alphazero_torch.search.gumbel", "xiangqi_alphazero_torch.train.arena",
+              "xiangqi_alphazero_torch.train.elo"]
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -80,6 +83,28 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         TA.GameService(model_dirs=[])
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["api", "--port", "0", "--model-dirs"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TP.Predictor(net, algo="gumbel")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["api", "--port", "0", "--search", "gumbel", "--model-dirs"])
     # the CPU is taken only when it is asked for
     assert TP.Predictor(net, device="cpu").device.type == "cpu"
+    assert TP.Predictor(net, algo="gumbel", device="cpu").device.type == "cpu"
     assert TA.GameService(model_dirs=[], device="cpu").models()[1]["device"] == "cpu"
+
+
+def test_arena_and_elo_raise_without_cuda(monkeypatch, tmp_path):
+    """The arena and Elo CLIs load their models on CUDA unless given
+    ``--device cpu``."""
+    from xiangqi_alphazero_torch.train import arena, elo
+
+    path = str(tmp_path / "m.pt")
+    torch.save({"model_state_dict": XiangqiNet(8, 1).state_dict(),
+                "config": {"num_channels": 8, "num_res_blocks": 1}}, path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        arena.main(["--a", path, "--b", path])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        elo.main(["--models", path, path])
+    assert arena.main(["--a", path, "--b", path, "--games", "2", "--sims", "2",
+                       "--max-game-length", "2", "--algo-a", "gumbel", "--device", "cpu"]) == 0

@@ -6,10 +6,12 @@ constant: the same array at every ply and, inside ``vmap``, in every lane.
 The port's draw functions are patched to return the same arrays at the same
 call sites: the opening lengths, one Gumbel row for every opening round and
 every game, the playout-cap coin, the Dirichlet gamma and the sampling
-Gumbels. The mock network is tests/test_mcts.py's (fixed priors, value
-tanh of the piece balance), evaluated by the port from a table of the JAX
-values. Tolerances: every array exactly equal, except ``pi_probs`` at atol
-1e-6 (``visits ** (1 / T)`` goes through two libraries' ``pow``)."""
+Gumbels, and for the Gumbel search its root row. The mock network is
+tests/test_mcts.py's (fixed priors, value tanh of the piece balance),
+evaluated by the port from a table of the JAX values. Tolerances: every
+array exactly equal, except ``pi_probs`` at atol 1e-6 (``visits ** (1 / T)``
+goes through two libraries' ``pow``; Gumbel's improved policy through their
+``exp``)."""
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 
 from tests.test_mcts import _jax_eval
 from tests.test_torch_search import _port_eval
+from xiangqi_alphazero_torch.search import gumbel as TG
 from xiangqi_alphazero_torch.search import mcts as TM
 from xiangqi_alphazero_torch.train import selfplay as TS
 from xiangqi_alphazero_tpu.train import selfplay as JS
@@ -159,9 +162,78 @@ def test_draws_are_made_on_the_cpu_generator():
     a, b, c = play(1), play(1), play(2)
     assert torch.equal(a.boards, b.boards) and torch.equal(a.pi_probs, b.pi_probs)
     assert not torch.equal(a.boards, c.boards)
-    with pytest.raises(NotImplementedError, match="A3"):
-        TS.selfplay_games(_port_eval, 4, s._replace(search_algo="gumbel"),
-                          torch.Generator(), "cpu")
+    # the Gumbel search's root draws come from the same generator
+    g = s._replace(search_algo="gumbel", max_considered=4)
+    a, b = (TS.selfplay_games(_port_eval, 4, g, torch.Generator().manual_seed(1), "cpu")
+            for _ in range(2))
+    assert torch.equal(a.boards, b.boards) and torch.equal(a.pi_probs, b.pi_probs)
+    rows = a.pi_probs.sum(dim=-1)[a.rec]
+    assert torch.allclose(rows, torch.ones_like(rows), atol=1e-5)
+
+
+_GB = 8   # games in the Gumbel fleet
+
+
+def _run_both_gumbel(monkeypatch, settings: dict, coin):
+    """Gumbel self-play of both packages with one constant per draw site:
+    under ``jit`` JAX's root draw (one ``(K,)`` row per lane under ``vmap``)
+    is the same row in every lane and at every ply, and so is the port's."""
+    rng = np.random.default_rng(5)
+    n_rand = rng.integers(0, settings["random_opening_moves"] + 1, size=_GB).astype(np.int32)
+    g_open = rng.gumbel(size=8100).astype(np.float32)
+    g_root = rng.gumbel(size=K).astype(np.float32)
+    coin = np.asarray(coin)
+
+    monkeypatch.setattr(jax.random, "randint", lambda *a, **k: jnp.asarray(n_rand))
+    monkeypatch.setattr(
+        jax.random, "gumbel",
+        lambda key, shape=(), *a, **k: jnp.asarray(g_open if tuple(shape) == (8100,) else g_root))
+    monkeypatch.setattr(jax.random, "bernoulli", lambda *a, **k: jnp.asarray(coin))
+    monkeypatch.setattr(TS, "_draw_opening_counts", lambda batch, n, gen: torch.from_numpy(n_rand))
+    monkeypatch.setattr(
+        TS, "_draw_opening_gumbel",
+        lambda batch, gen: torch.from_numpy(np.broadcast_to(g_open, (batch, 8100)).copy()))
+    monkeypatch.setattr(TS, "_draw_coin", lambda p, shape, gen: torch.from_numpy(coin))
+    monkeypatch.setattr(
+        TG, "_root_gumbel",
+        lambda batch, k, gen, dev: torch.from_numpy(np.broadcast_to(g_root, (batch, k)).copy()))
+
+    js = JS.SelfPlaySettings(**settings)
+    want = jax.jit(lambda r: JS.selfplay_games(_jax_eval, _GB, r, js))(jax.random.key(0))
+    got = TS.selfplay_games(_port_eval, _GB, TS.SelfPlaySettings(**settings),
+                            torch.Generator(), "cpu")
+    return jax.tree.map(np.asarray, want), got
+
+
+_GUMBEL = dict(search_algo="gumbel", max_considered=4, num_simulations=8,
+               max_game_length=20, random_opening_moves=2, resign_threshold=0.05,
+               resign_check_steps=2)
+
+
+@pytest.mark.parametrize("name, settings, coin", [
+    # the anneal schedule leaves Gumbel on the parallel loop's semantics
+    # (adjudication at the cap, resign after 10 recorded plies)
+    ("gumbel_anneal", dict(_GUMBEL, temperature_schedule="anneal"), True),
+    # the batch-global cap coin: every ply a cheap 2-simulation search
+    ("gumbel_cap_per_ply", dict(_GUMBEL, playout_cap_prob=0.5, playout_cap_sims=2), False),
+])
+def test_gumbel_selfplay_matches_jax(monkeypatch, name, settings, coin):
+    want, got = _run_both_gumbel(monkeypatch, settings, coin)
+    _assert_same(want, got)
+    assert want.rec.any() and (want.plies >= 16).any()
+    if name == "gumbel_anneal":
+        assert not TS._is_serial(TS.SelfPlaySettings(**settings))
+        rows = want.pi_probs.sum(axis=-1)[want.rec]
+        np.testing.assert_allclose(rows, 1.0, atol=1e-5)   # pi_improved rows
+    else:
+        assert not want.pi_probs.any() and set(got.sims_per_ply) == {2}
+
+
+def test_gumbel_refuses_per_game_caps():
+    s = TS.SelfPlaySettings(search_algo="gumbel", playout_cap_prob=0.5, playout_cap_sims=2,
+                            playout_cap_per_game=True, num_simulations=4, max_game_length=4)
+    with pytest.raises(ValueError, match="playout_cap_per_game"):
+        TS.selfplay_games(_port_eval, 2, s, torch.Generator(), "cpu")
 
 
 def test_evaluate_pair_matches_jax():

@@ -117,14 +117,69 @@ def test_raw_predict_matches_jax(predictors):
 
 
 def test_orbax_bundle_and_gumbel_are_refused(predictors, tmp_path):
+    """An orbax bundle is still refused; ``algo="gumbel"`` now serves a
+    legal, visited move (the name is kept from when it was refused)."""
     _, tp = predictors
     with pytest.raises(ValueError, match="export"):
         TP.Predictor.load(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="gumbel"):
-        TP.Predictor(tp.net, algo="gumbel", device="cpu")
+    g = TP.Predictor(tp.net, num_simulations=SIMS, algo="gumbel", device="cpu")
+    actions, visits, _, chosen = g.search_position(TO.Position())
+    assert chosen in TO.Position().legal_actions()
+    assert visits[actions == chosen].sum() > 0
+    with pytest.raises(ValueError, match="algo"):
+        TP.Predictor(tp.net, algo="nope", device="cpu")
     clone = tp.with_simulations(20)
     assert clone.net is tp.net and clone.num_simulations == 20
+    gclone = g.with_simulations(24)
+    assert gclone.algo == "gumbel" and gclone.num_simulations == 24
     assert TP.find_models([str(tmp_path)]) == []
+
+
+def _jax_key0_draws(batch: int) -> np.ndarray:
+    """The JAX Predictor's root draws: key(0) split per lane
+    (gumbel.py:262-264)."""
+    import jax.numpy as jnp
+
+    return np.array(jax.vmap(lambda k: jax.random.gumbel(k, (128,), jnp.float32))(
+        jax.random.split(jax.random.key(0), batch)))
+
+
+@pytest.fixture(scope="module")
+def gumbel_predictors(predictors):
+    """Both packages' Gumbel Predictors on the same ``.pt`` (one JAX
+    compile for the module)."""
+    jp, tp = predictors
+    return (JP.Predictor(jp.net, jp.variables, SIMS, algo="gumbel"),
+            TP.Predictor(tp.net, SIMS, algo="gumbel", device="cpu"))
+
+
+@pytest.mark.parametrize("seed,plies", _GAMES[1:])
+def test_gumbel_predictor_matches_jax(gumbel_predictors, monkeypatch, seed, plies):
+    """The Gumbel Predictors of both packages on one ``.pt``, JAX's root
+    draws injected into the port: equal (actions, visits, order, chosen),
+    and the payload acts ``chosen``; coalesced lanes carry their chosen."""
+    from xiangqi_alphazero_torch.search import gumbel as TG
+
+    jp, tp = gumbel_predictors
+    monkeypatch.setattr(TG, "_root_gumbel", lambda b, k, gen, dev: torch.from_numpy(
+        _jax_key0_draws(b)).to(dev))
+    pj, pt = _positions(seed, plies)
+    want, got = jp.search_position(pj), tp.search_position(pt)
+    assert len(got) == 4 and got[3] == want[3] >= 0
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w)
+    payload = tp.ai_move_from_search(pt.copy(), got)
+    assert payload["ai_move"]["action"] == got[3]
+    sel = [m for m in payload["ai_analysis"]["top_moves"] if m["selected"]]
+    assert len(sel) == 1 and sel[0]["action"] == got[3] and sel[0]["legal"]
+    # lane 0 of a coalesced batch is the search alone; every lane acts a
+    # legal, visited move
+    lanes = tp.search_batch([pt, TO.Position()], pad_to=4)
+    assert all(len(lane) == 4 for lane in lanes)
+    for g, w in zip(lanes[0], got):
+        np.testing.assert_array_equal(g, w)
+    acts, vis, _, chosen = lanes[1]
+    assert chosen in TO.Position().legal_actions() and vis[acts == chosen].sum() > 0
 
 
 def _keys(x):
@@ -214,3 +269,40 @@ def test_http_api_matches_jax_api(model_dir):
         for svc in (tsvc, jsvc):
             if svc.searcher is not None:
                 svc.searcher.stop()
+
+
+def test_http_api_gumbel_answers_human_move(model_dir):
+    """``GameService(search_algo="gumbel")`` behind the HTTP handler: a
+    human move gets a legal AI reply, and a session move its chosen."""
+    httpd, svc = TA.make_server("127.0.0.1", 0, [str(model_dir)], device="cpu",
+                                search_algo="gumbel")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % httpd.server_address[1]
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def http(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        with opener.open(urllib.request.Request(base + path, data=data), timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        assert http("/api/load_model", {"model_name": "tiny.pt", "num_simulations": SIMS})[0] == 200
+        assert svc.predictor.algo == "gumbel"
+        http("/api/new_game", {"human_side": "red", "num_simulations": SIMS})
+        code, res = http("/api/human_move",
+                         {"from_row": 3, "from_col": 0, "to_row": 4, "to_col": 0})
+        pos = TO.Position()
+        pos.apply(27 * 90 + 36)
+        assert code == 200 and res["ai_move"]["action"] in pos.legal_actions()
+        sel = [m for m in res["ai_analysis"]["top_moves"] if m["selected"]]
+        assert sel and sel[0]["action"] == res["ai_move"]["action"]
+        sid = http("/api/session/new", {"human_side": "red"})[1]["session_id"]
+        code, res = http("/api/session/move", {"session_id": sid, "from_row": 3, "from_col": 0,
+                                                "to_row": 4, "to_col": 0})
+        assert code == 200 and res["ai_move"]["action"] in pos.legal_actions()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        if svc.searcher is not None:
+            svc.searcher.stop()

@@ -82,10 +82,16 @@ def test_cli_overrides_and_unported_flags_raise():
     want, _ = JC.config_from_args(JC.build_argparser().parse_args(argv))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert TC.build_argparser().parse_args([]).device == "cuda"
-    for flags, item in [(["--auto-restart", "2"], "A10"), (["--search-algo", "gumbel"], "A3"),
+    # the Gumbel search's flags take effect, as in the JAX CLI
+    flags = ["--search-algo", "gumbel", "--max-considered", "4"]
+    got, _ = TC.config_from_args(TC.build_argparser().parse_args(argv + flags))
+    want, _ = JC.config_from_args(JC.build_argparser().parse_args(argv + flags))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.search_algo, got.max_considered) == ("gumbel", 4)
+    for flags, item in [(["--auto-restart", "2"], "A10"),
                         (["--model-parallel", "2"], "A7"), (["--num-processes", "2"], "A7"),
                         (["--coordinator", "localhost:1234"], "A7"),
-                        (["--process-id", "1"], "A7"), (["--max-considered", "8"], "A3")]:
+                        (["--process-id", "1"], "A7")]:
         with pytest.raises(NotImplementedError, match=item):
             TC.config_from_args(TC.build_argparser().parse_args(flags))
     with pytest.raises(SystemExit):   # no counterpart: the flag is not offered
@@ -388,6 +394,33 @@ def test_trainer_two_iterations_and_bit_identical_resume(tmp_path):
     resumed.train()
     _assert_tree_equal(_state(resumed), _state(full))
     assert resumed.total_games == full.total_games
+    assert _without_times(resumed.training_stats) == _without_times(full.training_stats)
+
+
+def test_gumbel_trainer_learns_and_resumes_bit_identically(tmp_path):
+    """A Gumbel run: self-play trains on improved-policy rows, the losses
+    are finite, the gated eval (PUCT, as in the JAX trainer) runs, and a
+    checkpoint of iteration 1 resumes bit-identically."""
+    from xiangqi_alphazero_torch.train.trainer import AlphaZeroTrainer
+
+    kw = dict(search_algo="gumbel", max_considered=4, num_simulations=6)
+    full = AlphaZeroTrainer(_tiny_cfg(tmp_path / "full", **kw), device="cpu")
+    full.train()
+    st = full.training_stats
+    assert st[0]["self_play"]["new_samples"] > 0 and st[0]["self_play"]["simulations"] > 0
+    assert all(np.isfinite(x["training"][k]) for x in st for k in ("policy_loss", "value_loss"))
+    assert st[1]["evaluation"]["plies"] >= 1
+    n = len(full.buffer)
+    rows = full.buffer.pi_probs[:n].sum(axis=1)
+    assert (np.abs(rows - 1) <= 1e-5).all()   # every row a pi_improved distribution
+    dst = tmp_path / "resumed"
+    dst.mkdir()
+    for name in ("checkpoint_iter1", "checkpoint_iter1.replay.npz", "training_stats.json"):
+        shutil.copy(tmp_path / "full" / name, dst / name)
+    resumed = AlphaZeroTrainer(_tiny_cfg(dst, **kw), device="cpu")
+    resumed.restore(str(dst / "checkpoint_iter1"))
+    resumed.train()
+    _assert_tree_equal(_state(resumed), _state(full))
     assert _without_times(resumed.training_stats) == _without_times(full.training_stats)
 
 

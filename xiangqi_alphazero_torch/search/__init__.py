@@ -1,5 +1,11 @@
-"""Batched PUCT search (the Gumbel search is not ported yet)."""
+"""Batched PUCT search and the Gumbel root search."""
 
+from .gumbel import (  # noqa: F401
+    GumbelConfig,
+    GumbelResult,
+    halving_schedule,
+    run_gumbel_mcts,
+)
 from .mcts import (  # noqa: F401
     MCTSConfig,
     SearchResult,

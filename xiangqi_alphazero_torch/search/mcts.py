@@ -253,11 +253,33 @@ def _select_core(mask: torch.Tensor, new: E.EnvState, old: E.EnvState) -> E.EnvS
     return old.replace(**out)
 
 
-def _descend(tree: Tree, root: E.EnvState, c_puct: float, max_depth: int):
-    """Select down every game's tree to a leaf. Returns (mode, sel_parent,
-    sel_slot, leaf, leaf core state, path_node[B, D], path_slot[B, D],
-    depth): path_node[:, d]/path_slot[:, d] is the edge taken at depth d
-    (valid for d < depth). The leaf state's legal/done/winner are stale."""
+def tie_break(score: torch.Tensor, valid: torch.Tensor, acts: torch.Tensor) -> torch.Tensor:
+    """Lexicographic argmax on (score, movegen precedence): the slot of the
+    best valid score, exact ties going to the earliest move in generator
+    order (the least packed key)."""
+    tied = valid & (score == score.max(dim=-1, keepdim=True).values)
+    return torch.where(tied, acts, 2**30).argmin(dim=-1)
+
+
+def puct_rule(c_puct: float) -> Callable:
+    """The PUCT select: Q + c_puct * P * sqrt(N_parent) / (1 + N_child)."""
+
+    def select(cur, depth, node_n, e_n, e_w, pr, acts, valid):
+        q = torch.where(e_n > 0, e_w / e_n.clamp(min=1.0), 0.0)
+        u = c_puct * pr * torch.sqrt(node_n)[:, None] / (1.0 + e_n)
+        return tie_break(torch.where(valid, q + u, -torch.inf), valid, acts)
+
+    return select
+
+
+def _descend(tree: Tree, root: E.EnvState, max_depth: int, select: Callable):
+    """Select down every game's tree to a leaf, taking at each node the slot
+    ``select(cur, depth, node_n, e_n, e_w, priors, acts, valid)`` names
+    (node_n: the visits of the edge into ``cur``, the root's count at the
+    root). Returns (mode, sel_parent, sel_slot, leaf, leaf core state,
+    path_node[B, D], path_slot[B, D], depth): path_node[:, d]/path_slot[:, d]
+    is the edge taken at depth d (valid for d < depth). The leaf state's
+    legal/done/winner are stale."""
     bsz = tree.root_n.shape[0]
     dev = tree.ew.device
     bidx = torch.arange(bsz, device=dev)
@@ -275,14 +297,7 @@ def _descend(tree: Tree, root: E.EnvState, c_puct: float, max_depth: int):
         e_w = tree.ew[bidx, 1, cur]
         pr = tree.priors[bidx, cur]
         acts = tree.actions[bidx, cur]
-        valid = acts >= 0
-        q = torch.where(e_n > 0, e_w / e_n.clamp(min=1.0), 0.0)
-        u = c_puct * pr * torch.sqrt(node_n)[:, None] / (1.0 + e_n)
-        ucb = torch.where(valid, q + u, -torch.inf)
-        # lexicographic argmax on (ucb, movegen precedence): exact UCB ties
-        # go to the earliest move in generator order
-        tied = valid & (ucb == ucb.max(dim=-1, keepdim=True).values)
-        slot = torch.where(tied, acts, 2**30).argmin(dim=-1)
+        slot = select(cur, depth, node_n, e_n, e_w, pr, acts, acts >= 0)
         packed = acts[bidx, slot]
         a = torch.where(act & (packed >= 0), packed % _PACK, 0)
         core2 = E.step_core(core, a)
@@ -337,6 +352,40 @@ def _backup(tree: Tree, pnode, pslot, depth, v) -> None:
     )
 
 
+def _expand_and_backup(
+    tree: Tree, eval_fn: Callable, slot_priors: Callable, new_idx: int, mode,
+    sel_parent, sel_slot, leaf, core, pnode, pslot, depth,
+) -> Tuple[E.EnvState, torch.Tensor]:
+    """One simulation's second half, for every game: evaluate the leaves
+    (one legal-mask launch and one net call for the batch), write node
+    ``new_idx`` (simulation i creates node i+1; garbage and unreachable for
+    games that did not create: no child pointer), point the selected edge
+    at it where the descent created it, and back the value up the path.
+    Returns the evaluated leaf states and the net's values."""
+    bidx = torch.arange(tree.root_n.shape[0], device=tree.ew.device)
+    leaf_env = E.evaluate_batch(core)
+    probs, value = eval_fn(E.features(leaf_env.board, leaf_env.side))
+    value = value.float()
+    is_create = mode == _MODE_CREATE
+    t_val = torch.where(leaf_env.winner != 0, 1.0, 0.0)   # mcts.py:138-140
+    sa, va, p_raw = slot_priors(leaf_env.board, leaf_env.side, leaf_env.legal, probs)
+    tree.expanded[:, new_idx] = ~leaf_env.done
+    tree.terminal[:, new_idx] = leaf_env.done
+    tree.term_value[:, new_idx] = t_val
+    tree.actions[:, new_idx] = sa
+    tree.priors[:, new_idx] = _mask_normalize(p_raw, va)
+    old = tree.child[bidx, sel_parent, sel_slot]
+    tree.child[bidx, sel_parent, sel_slot] = torch.where(
+        is_create, torch.full_like(old, new_idx), old
+    )
+    # value to back up, from the parent's perspective at the leaf
+    v_create = torch.where(leaf_env.done, t_val, -value)   # mcts.py:138-150
+    v = torch.where(is_create, v_create, tree.term_value[bidx, leaf])
+    _backup(tree, pnode, pslot, depth, v)
+    tree.root_n += (mode != _MODE_NOOP).to(torch.int32)
+    return leaf_env, value
+
+
 def _draw_device(generator: Optional[torch.Generator], device) -> torch.device:
     """Draws are made where ``generator`` lives (a CPU generator gives the
     card and the CPU the same draws), else on ``device``."""
@@ -380,7 +429,6 @@ def run_mcts(
     k = cfg.max_children
     slot_priors = make_slot_priors(logits_eval, k)
     tree = init_tree(batch, cfg, dev)
-    bidx = torch.arange(batch, device=dev)
 
     # Root priors (+ optional Dirichlet noise), reference mcts.py:107-123.
     probs, _ = eval_fn(E.features(roots.board, roots.side))
@@ -400,9 +448,10 @@ def run_mcts(
     tree.expanded[:, 0] = valid.any(dim=-1)
 
     max_depth = cfg.num_simulations + 2   # depth <= i + 1: never binds
+    select = puct_rule(cfg.c_puct)
     for i in range(cfg.num_simulations):
         mode, sel_parent, sel_slot, leaf, core, pnode, pslot, depth = _descend(
-            tree, roots, cfg.c_puct, max_depth
+            tree, roots, max_depth, select
         )
         if sim_budget is not None:
             # simulations past a game's budget are no-ops: no create, no
@@ -410,29 +459,8 @@ def run_mcts(
             active = i < sim_budget
             mode = torch.where(active, mode, _MODE_NOOP)
             depth = torch.where(active, depth, 0)
-        leaf_env = E.evaluate_batch(core)
-        probs, value = eval_fn(E.features(leaf_env.board, leaf_env.side))
-
-        is_create = mode == _MODE_CREATE
-        new_idx = i + 1   # simulation i creates node i+1 (garbage and
-        # unreachable for games that did not create: no child pointer)
-        t_val = torch.where(leaf_env.winner != 0, 1.0, 0.0)   # mcts.py:138-140
-        sa, va, p_raw = slot_priors(leaf_env.board, leaf_env.side, leaf_env.legal, probs)
-        tree.expanded[:, new_idx] = ~leaf_env.done
-        tree.terminal[:, new_idx] = leaf_env.done
-        tree.term_value[:, new_idx] = t_val
-        tree.actions[:, new_idx] = sa
-        tree.priors[:, new_idx] = _mask_normalize(p_raw, va)
-        old = tree.child[bidx, sel_parent, sel_slot]
-        tree.child[bidx, sel_parent, sel_slot] = torch.where(
-            is_create, torch.full_like(old, new_idx), old
-        )
-
-        # value to back up, from the parent's perspective at the leaf
-        v_create = torch.where(leaf_env.done, t_val, -value.float())  # mcts.py:138-150
-        v = torch.where(is_create, v_create, tree.term_value[bidx, leaf])
-        _backup(tree, pnode, pslot, depth, v)
-        tree.root_n += (mode != _MODE_NOOP).to(torch.int32)
+        _expand_and_backup(tree, eval_fn, slot_priors, i + 1, mode, sel_parent,
+                           sel_slot, leaf, core, pnode, pslot, depth)
 
     visits_f = tree.ew[:, 0, 0, :]
     w_root = tree.ew[:, 1, 0, :]
@@ -454,8 +482,7 @@ def greedy_slots(result: SearchResult) -> torch.Tensor:
     """Most-visited root slot per game, ties resolved to the earliest move
     in the reference's generation order (mcts.py:198)."""
     counts = torch.where(result.valid, result.visits, -1)
-    tied = result.valid & (counts == counts.max(dim=-1, keepdim=True).values)
-    return torch.where(tied, result.order, 2**30).argmin(dim=-1)
+    return tie_break(counts, result.valid, result.order)
 
 
 def _temperature(temperature, counts: torch.Tensor) -> torch.Tensor:

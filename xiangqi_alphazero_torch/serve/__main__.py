@@ -3,7 +3,8 @@
   python -m xiangqi_alphazero_torch.serve api --port 5000 --model-dirs models
 
 Serves reference-layout ``.pt`` models found in ``--model-dirs`` on the card
-(``--device cpu`` runs on the CPU). An orbax bundle of the JAX package is
+(``--device cpu`` runs on the CPU; ``--search gumbel`` serves with the
+Gumbel root search). An orbax bundle of the JAX package is
 turned into one with its own CLI:
 ``python -m xiangqi_alphazero_tpu.serve export --checkpoint <dir> --format
 torch --output model.pt``.
@@ -26,6 +27,12 @@ def main(argv=None) -> int:
         help="run every session-coalescing batch shape once at model load",
     )
     ap.add_argument(
+        "--search", choices=["puct", "gumbel"], default="puct",
+        help="puct = the reference's search semantics; gumbel = the "
+             "sequential-halving root (stronger per simulation: pair "
+             "with a low num_simulations for low-latency serving)",
+    )
+    ap.add_argument(
         "--device", default="cuda",
         help="torch device to serve on (default cuda; 'cpu' for the CPU)",
     )
@@ -34,7 +41,8 @@ def main(argv=None) -> int:
     from .api import serve
 
     serve(args.host, args.port, args.model_dirs,
-          warm_sessions=args.warm_session_buckets, device=args.device)
+          warm_sessions=args.warm_session_buckets, device=args.device,
+          search_algo=args.search)
     return 0
 
 

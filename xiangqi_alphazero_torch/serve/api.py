@@ -45,9 +45,14 @@ class GameService:
         model_dirs: Optional[List[str]] = None,
         warm_sessions: bool = False,
         device=None,
+        search_algo: str = "puct",
     ):
         self.model_dirs = model_dirs or ["models", "checkpoints"]
         self.device = resolve_device(device)
+        # "puct" (reference semantics) or "gumbel" (sequential-halving
+        # root, serve/predictor.py: stronger per simulation, so serving can
+        # run far fewer simulations per move for the same strength)
+        self.search_algo = search_algo
         self.predictor: Optional[Predictor] = None
         self.model_name: Optional[str] = None
         self.game: Optional[Position] = None
@@ -95,7 +100,7 @@ class GameService:
             # and the two can never disagree about the model
             predictor = Predictor.load(
                 found[0]["path"], num_simulations=self.num_simulations,
-                device=self.device,
+                algo=self.search_algo, device=self.device,
             )
             # run forward + search now, not on the first human move
             # (reference server warmup: inference_server.py:101-107)
@@ -450,10 +455,12 @@ def make_handler(service: GameService):
 def make_server(host: str = "127.0.0.1", port: int = 5000,
                 model_dirs: Optional[List[str]] = None,
                 warm_sessions: bool = False,
-                device=None) -> Tuple[ThreadingHTTPServer, GameService]:
+                device=None,
+                search_algo: str = "puct") -> Tuple[ThreadingHTTPServer, GameService]:
     """The HTTP server and its service, bound but not yet serving
     (``port=0`` binds a free port: ``httpd.server_address``)."""
-    service = GameService(model_dirs, warm_sessions=warm_sessions, device=device)
+    service = GameService(model_dirs, warm_sessions=warm_sessions, device=device,
+                          search_algo=search_algo)
     httpd = ThreadingHTTPServer((host, port), make_handler(service))
     return httpd, service
 
@@ -461,10 +468,12 @@ def make_server(host: str = "127.0.0.1", port: int = 5000,
 def serve(host: str = "127.0.0.1", port: int = 5000,
           model_dirs: Optional[List[str]] = None,
           warm_sessions: bool = False,
-          device=None) -> None:
-    httpd, service = make_server(host, port, model_dirs, warm_sessions, device)
+          device=None,
+          search_algo: str = "puct") -> None:
+    httpd, service = make_server(host, port, model_dirs, warm_sessions, device,
+                                 search_algo)
     print(f"xiangqi-az demo API on http://{host}:{port} "
-          f"({device_name(service.device)})")
+          f"({device_name(service.device)}, {search_algo} search)")
     try:
         httpd.serve_forever()
     finally:

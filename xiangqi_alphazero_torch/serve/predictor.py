@@ -3,8 +3,13 @@
 Port of ``xiangqi_alphazero_tpu.serve.predictor``. Loads reference-layout
 ``.pt`` checkpoints (the JAX package's orbax bundles are exported to one
 with ``python -m xiangqi_alphazero_tpu.serve export --format torch``). The
-search is the batched PUCT search; the human-facing game state is the host
-oracle ``Position``.
+search is the batched PUCT search (``algo="puct"``, the reference's
+semantics) or the Gumbel root search (``algo="gumbel"``, stronger per
+simulation, so it can serve at a fraction of the simulations); the
+human-facing game state is the host oracle ``Position``. Every Gumbel
+search draws its root noise from a fresh CPU generator seeded 0, as the JAX
+Predictor draws from ``jax.random.key(0)``: a position gets the same reply
+every time, and a lane of a coalesced batch the same as a search alone.
 
 Runs on the card unless the caller passes ``device="cpu"``; without CUDA a
 default-device Predictor raises instead of falling back. The net serves in
@@ -25,7 +30,7 @@ import torch
 from ..engine import env as E
 from ..engine.oracle import PIECE_NAMES, Position, decode_action
 from ..models import XiangqiNet, load_reference_pt, policy_value_fn
-from ..search import MCTSConfig, run_mcts
+from ..search import GumbelConfig, MCTSConfig, run_gumbel_mcts, run_mcts
 
 _EXPORT_HINT = (
     "python -m xiangqi_alphazero_tpu.serve export --checkpoint {path} "
@@ -95,9 +100,7 @@ class Predictor:
         algo: str = "puct",
         device=None,
     ):
-        if algo == "gumbel":
-            raise NotImplementedError("gumbel search is not ported yet")
-        if algo != "puct":
+        if algo not in ("puct", "gumbel"):
             raise ValueError(f"unknown search algo {algo!r}")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -106,6 +109,8 @@ class Predictor:
         self.net = net.to(self.device).eval()
         self.num_simulations = int(num_simulations)
         self.c_puct = float(c_puct)
+        # "puct" = the reference's search semantics (mcts.py:94-155);
+        # "gumbel" = the sequential-halving root (search/gumbel.py)
         self.algo = algo
 
     # ------------------------------------------------------------- loading
@@ -122,7 +127,8 @@ class Predictor:
                    device=device)
 
     def with_simulations(self, num_simulations: int) -> "Predictor":
-        """Shallow clone sharing the network, with its own search depth."""
+        """Shallow clone sharing the network and the search algorithm, with
+        its own search depth."""
         return Predictor(self.net, num_simulations, self.c_puct,
                          algo=self.algo, device=self.device)
 
@@ -161,31 +167,42 @@ class Predictor:
         return probs[:n].cpu().numpy(), value[:n].cpu().numpy()
 
     @torch.inference_mode()
-    def _search(self, state: E.EnvState):
-        cfg = MCTSConfig(num_simulations=self.num_simulations, c_puct=self.c_puct)
-        res = run_mcts(policy_value_fn(self.net), state, cfg, add_noise=False)
-        return (res.actions.cpu().numpy(), res.visits.cpu().numpy(),
-                res.order.cpu().numpy())
+    def _search(self, state: E.EnvState) -> List[Tuple]:
+        """One search over the batch; per lane (actions, visits, order),
+        and with Gumbel the chosen action as a fourth entry."""
+        fn = policy_value_fn(self.net)
+        if self.algo == "gumbel":
+            gcfg = GumbelConfig(num_simulations=self.num_simulations,
+                                max_considered=min(16, max(1, self.num_simulations)))
+            res = run_gumbel_mcts(fn, state, gcfg, generator=torch.Generator().manual_seed(0))
+            extra = (res.chosen.cpu().numpy(),)
+        else:
+            cfg = MCTSConfig(num_simulations=self.num_simulations, c_puct=self.c_puct)
+            res = run_mcts(fn, state, cfg, add_noise=False)
+            extra = ()
+        cols = (res.actions.cpu().numpy(), res.visits.cpu().numpy(),
+                res.order.cpu().numpy()) + extra
+        return [tuple(c[i] if c.ndim > 1 else int(c[i]) for c in cols)
+                for i in range(state.board.shape[0])]
 
-    def search_position(self, pos: Position) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Run MCTS (no noise, greedy analysis). Returns (actions, visits,
-        order) — ``order`` is the movegen-precedence key per slot (ascending
-        == the reference engine's enumeration order; -1 pads)."""
-        actions, visits, order = self._search(state_from_position(pos, self.device))
-        return actions[0], visits[0], order[0]
+    def search_position(self, pos: Position) -> Tuple:
+        """Run the search (no noise, greedy analysis). Returns (actions,
+        visits, order), and with Gumbel (actions, visits, order, chosen):
+        ``order`` is the movegen-precedence key per slot (ascending == the
+        reference engine's enumeration order; -1 pads), ``chosen`` the
+        halving's winner."""
+        return self._search(state_from_position(pos, self.device))[0]
 
-    def search_batch(
-        self, positions: List[Position], pad_to: Optional[int] = None
-    ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    def search_batch(self, positions: List[Position], pad_to: Optional[int] = None) -> List[Tuple]:
         """One batched search over several independent positions. Lanes are
-        independent (no cross-lane reductions, inference-mode batch norm),
-        so each lane equals a batch-1 ``search_position`` of its position.
+        independent (no cross-lane reductions, inference-mode batch norm,
+        and a lane's Gumbel draws do not depend on the batch width), so each
+        lane equals a batch-1 ``search_position`` of its position.
         ``pad_to`` pads the batch by repeating positions[0]."""
         n = len(positions)
         padded = positions + [positions[0]] * (max(pad_to or n, n) - n)
         state = E.cat_states([state_from_position(p, self.device) for p in padded])
-        actions, visits, order = self._search(state)
-        return [(actions[i], visits[i], order[i]) for i in range(n)]
+        return self._search(state)[:n]
 
     # ------------------------------------------------------------ analysis
     def ai_move(self, pos: Position) -> Dict:
@@ -196,7 +213,7 @@ class Predictor:
     def ai_move_from_search(
         self,
         pos: Position,
-        search: Tuple[np.ndarray, np.ndarray, np.ndarray],
+        search: Tuple,
         raw: Optional[Tuple[np.ndarray, float]] = None,
     ) -> Dict:
         """Analysis payload from an already-run search; ``raw`` optionally
@@ -209,10 +226,15 @@ class Predictor:
 
         total = max(visits.sum(), 1)
         order = np.argsort(visits)[::-1][:15]
-        # temp-0 pick: first max-visit child in the reference's movegen
-        # order (its max() over the insertion-ordered dict, mcts.py:198)
-        tied = np.flatnonzero((actions >= 0) & (visits == visits.max()))
-        selected = int(actions[tied[np.argmin(mg_order[tied])]])
+        if len(search) > 3 and search[3] >= 0:
+            # gumbel: the acted move is the halving winner by
+            # g + logits + sigma(q), not the max-visit child
+            selected = int(search[3])
+        else:
+            # temp-0 pick: first max-visit child in the reference's movegen
+            # order (its max() over the insertion-ordered dict, mcts.py:198)
+            tied = np.flatnonzero((actions >= 0) & (visits == visits.max()))
+            selected = int(actions[tied[np.argmin(mg_order[tied])]])
 
         top_moves = []
         for j in order:

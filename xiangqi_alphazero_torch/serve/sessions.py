@@ -84,7 +84,8 @@ class BatchedSearcher:
     def search(self, pos: Position) -> Tuple:
         """Blocking search request; returns (actions, visits, order,
         raw_policy, raw_value) for this position's lane of whatever batch
-        it lands in — search and raw forward both coalesced."""
+        it lands in — search and raw forward both coalesced. With the
+        Gumbel search the lane's chosen action follows ``order``."""
         req = _Request(pos)
         with self._cv:
             if self._stopped:

@@ -20,7 +20,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 _A7 = "ROADMAP A7 (multi-device training with torch.distributed)"
-_A3 = "ROADMAP A3 (Gumbel search)"
 _SUPERVISOR = "ROADMAP A10 (the --auto-restart supervisor and stall watchdog)"
 
 
@@ -336,11 +335,6 @@ def check_supported(cfg: TrainingConfig, num_devices: int = 1) -> None:
         raise NotImplementedError(f"model_parallel > 1 is not ported: {_A7}")
     if cfg.coordinator_address is not None or cfg.num_processes > 1 or cfg.process_id:
         raise NotImplementedError(f"multi-process training is not ported: {_A7}")
-    if cfg.search_algo != "puct":
-        raise NotImplementedError(f"search_algo={cfg.search_algo!r} is not ported: {_A3}")
-    if cfg.max_considered != TrainingConfig.max_considered:
-        raise NotImplementedError(
-            f"max_considered is the Gumbel root's candidate count, not ported: {_A3}")
     if cfg.train_segment_batches:
         raise NotImplementedError(
             "train_segment_batches bounds one TPU program's length; the port's "

@@ -11,12 +11,14 @@ All eval games run in one lockstep batch, split into contiguous color halves
 position with no openings, so every live game sits at the same ply: at each
 ply exactly one model is to move in each half, and each model searches only
 its half. The match is a host loop, one ply per iteration; the search and
-the pick are deterministic, so no generator is needed.
+the pick are deterministic, so no generator is needed. The per-half search
+and pick are hooks (``_make_body``), which the arena (``arena.py``) fills
+with other searches, budgets and temperature sampling.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -47,12 +49,34 @@ def _greedy(res: M.SearchResult) -> torch.Tensor:
     return res.actions.gather(1, slot[:, None])[:, 0]
 
 
-def _make_body(eval_new: Callable, eval_old: Callable, batch: int,
-               s: EvalSettings, logits_eval: bool) -> Callable:
+def _make_body(
+    eval_new: Callable, eval_old: Callable, batch: int, s: EvalSettings,
+    logits_eval: bool,
+    select_new: Optional[Callable] = None,
+    select_old: Optional[Callable] = None,
+    search_new: Optional[Callable] = None,
+    search_old: Optional[Callable] = None,
+) -> Callable:
     """Per-ply body of the color-halved lockstep match: (states, t) ->
-    states."""
+    states.
+
+    ``select_new``/``select_old`` map a search result to each half's
+    actions; the default is the reference's deterministic greedy pick
+    (temperature 0, train.py:478-496). ``search_new``/``search_old`` map
+    ``(eval_fn, states)`` to a result and default to the PUCT search at
+    ``s.num_simulations`` with no noise. The arena overrides them to pit
+    other algorithms and budgets (for example gumbel-32 against puct-200);
+    this is the one copy of the color-half logic every match shares."""
     half = batch // 2
     mcfg = M.MCTSConfig(s.num_simulations, s.c_puct, max_children=s.max_children)
+
+    def default_search(ev, st):
+        return M.run_mcts(ev, st, mcfg, add_noise=False, logits_eval=logits_eval)
+
+    select_new = select_new or _greedy
+    select_old = select_old or _greedy
+    search_new = search_new or default_search
+    search_old = search_old or default_search
 
     def body(states: E.EnvState, t: int) -> E.EnvState:
         # red moves at even plies; order the batch so the candidate's games
@@ -62,9 +86,8 @@ def _make_body(eval_new: Callable, eval_old: Callable, batch: int,
         ordered = states if new_first else states.map(
             lambda x: torch.cat([x[half:], x[:half]]))
         top, bot = ordered.map(lambda x: x[:half]), ordered.map(lambda x: x[half:])
-        res_new = M.run_mcts(eval_new, top, mcfg, add_noise=False, logits_eval=logits_eval)
-        res_old = M.run_mcts(eval_old, bot, mcfg, add_noise=False, logits_eval=logits_eval)
-        act = torch.cat([_greedy(res_new), _greedy(res_old)])
+        act = torch.cat([select_new(search_new(eval_new, top)),
+                         select_old(search_old(eval_old, bot))])
         if not new_first:
             act = torch.cat([act[half:], act[:half]])
         return E.step_batch(states, act)
@@ -97,14 +120,20 @@ def evaluate_pair(
     s: EvalSettings,
     device,
     logits_eval: bool = False,
+    *,
+    select_new: Optional[Callable] = None,
+    select_old: Optional[Callable] = None,
+    search_new: Optional[Callable] = None,
+    search_old: Optional[Callable] = None,
 ) -> EvalOut:
     """Play the match of ``batch`` games (even: two color halves) on
     ``device``. ``eval_new``/``eval_old`` map features to (policy or
-    logits, value), as for ``run_mcts``. Call under
-    ``torch.inference_mode()`` with both nets in eval mode."""
+    logits, value), as for ``run_mcts``; the hooks are ``_make_body``'s.
+    Call under ``torch.inference_mode()`` with both nets in eval mode."""
     if batch % 2:
         raise ValueError("eval batch must be even (color halves)")
-    body = _make_body(eval_new, eval_old, batch, s, logits_eval)
+    body = _make_body(eval_new, eval_old, batch, s, logits_eval, select_new,
+                      select_old, search_new, search_old)
     states = E.reset_batch(batch, device=torch.device(device))
     t = 0
     while t < s.max_game_length and not bool(states.done.all()):

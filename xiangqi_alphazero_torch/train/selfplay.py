@@ -4,9 +4,11 @@ Port of ``xiangqi_alphazero_tpu.train.selfplay`` (selfplay.py:48-480), with
 its semantics: random openings (a game that ends in its opening restarts
 fresh), material adjudication at the move cap, the binary and anneal
 temperature schedules with their clocks, both resign gates, playout-cap
-randomization with the per-ply and the per-game coin, and the z labels. The
-module doc and ``SelfPlaySettings`` of the JAX package give the reference
-lines of each.
+randomization with the per-ply and the per-game coin, the z labels, and the
+Gumbel search (``search_algo="gumbel"``: the acted move is the halving's
+winner and the recorded pi its improved policy, with no temperature and no
+Dirichlet noise). The module doc and ``SelfPlaySettings`` of the JAX package
+give the reference lines of each.
 
 The game loop is a plain host loop, one ply per iteration, that stops when no
 game is alive (the JAX package's hosted segments only kept each TPU program
@@ -16,10 +18,11 @@ arrays.
 
 Every random draw is made on the CPU from one ``torch.Generator`` and moved
 to the device: the opening lengths and moves here, the cap coins here, the
-Dirichlet gamma and the sampling Gumbels in ``search/mcts.py``. So the card
-and the CPU play the same games from the same seed. Tests replace the draw
-functions (``_draw_*`` here, ``_gamma``/``_gumbel`` there) to inject the
-JAX package's draws.
+Dirichlet gamma and the sampling Gumbels in ``search/mcts.py``, the root
+Gumbels in ``search/gumbel.py``. So the card and the CPU play the same games
+from the same seed. Tests replace the draw functions (``_draw_*`` here,
+``_gamma``/``_gumbel`` and ``_root_gumbel`` there) to inject the JAX
+package's draws.
 """
 
 from __future__ import annotations
@@ -30,12 +33,13 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from ..engine import env as E
+from ..search import gumbel as G
 from ..search import mcts as M
 
 
 class SelfPlaySettings(NamedTuple):
     """The JAX package's settings (see its ``SelfPlaySettings`` for what
-    each reference loop does). Only ``search_algo="puct"`` is ported."""
+    each reference loop does)."""
 
     num_simulations: int = 80
     c_puct: float = 1.5
@@ -146,8 +150,10 @@ def _alive(c: SPCarry) -> torch.Tensor:
 
 
 def _is_serial(s: SelfPlaySettings) -> bool:
-    """Whether the SERIAL reference loop's cap/resign semantics apply."""
-    return s.temperature_schedule == "anneal"
+    """Whether the SERIAL reference loop's cap/resign semantics apply.
+    Gumbel mode always uses the parallel loop's (adjudication at the move
+    cap, resign gate > 10 recorded plies): it has no temperature at all."""
+    return s.temperature_schedule == "anneal" and s.search_algo != "gumbel"
 
 
 # ------------------------------------------------------------------- loop
@@ -192,14 +198,23 @@ def _make_body(
 ) -> Callable[[SPCarry], int]:
     """The per-ply body: advances the carry in place by one ply and returns
     the number of simulations its search ran."""
+    gumbel = s.search_algo == "gumbel"
     capped = 0.0 < s.playout_cap_prob < 1.0 and s.playout_cap_sims > 0
     per_game = capped and s.playout_cap_per_game
-    full_cfg = M.MCTSConfig(s.num_simulations, s.c_puct, max_children=s.max_children)
-    # cheap searches run noiseless (KataGo §3.1)
-    cheap_cfg = M.MCTSConfig(s.playout_cap_sims, s.c_puct, max_children=s.max_children)
+    if per_game and gumbel:
+        raise ValueError(
+            "playout_cap_per_game needs search_algo='puct' (the gumbel "
+            "halving schedule is static; use the batch-global coin)")
     serial = _is_serial(s)
 
-    def search(states, cfg, add_noise, **kw):
+    def search(states, sims, add_noise, **kw):
+        if gumbel:
+            gcfg = G.GumbelConfig(num_simulations=sims,
+                                  max_considered=min(s.max_considered, s.max_children),
+                                  max_children=s.max_children)
+            return G.run_gumbel_mcts(eval_fn, states, gcfg, logits_eval=logits_eval,
+                                     generator=gen)
+        cfg = M.MCTSConfig(sims, s.c_puct, max_children=s.max_children)
         return M.run_mcts(eval_fn, states, cfg, add_noise=add_noise,
                           logits_eval=logits_eval, generator=gen, **kw)
 
@@ -219,22 +234,29 @@ def _make_body(
             # simulation budgets
             coins = _draw_coin(s.playout_cap_prob, (batch,), gen).to(dev)
             budget = torch.where(coins, s.num_simulations, s.playout_cap_sims).to(torch.int32)
-            res = search(c.states, full_cfg, True, sim_budget=budget, noise_mask=coins)
-            sims, is_full = full_cfg.num_simulations, coins[:, None]
+            res = search(c.states, s.num_simulations, True, sim_budget=budget,
+                         noise_mask=coins)
+            sims, is_full = s.num_simulations, coins[:, None]
         elif capped:
-            # one coin per ply for the whole fleet: full or cheap search
+            # one coin per ply for the whole fleet: the full search, or a
+            # cheap one run noiseless (KataGo §3.1)
             is_full = bool(_draw_coin(s.playout_cap_prob, (), gen))
-            cfg = full_cfg if is_full else cheap_cfg
-            res = search(c.states, cfg, is_full)
-            sims = cfg.num_simulations
+            sims = s.num_simulations if is_full else s.playout_cap_sims
+            res = search(c.states, sims, is_full)
         else:
-            res = search(c.states, full_cfg, True)
-            sims = full_cfg.num_simulations
+            sims = s.num_simulations
+            res = search(c.states, sims, True)
 
-        # schedule clock: total moves (parallel) vs recorded (serial)
-        temp = temperature_at(c.n_rec if serial else c.states.ply, s)
-        pi = M.action_probs_slots(res, temp)
-        act = M.sample_actions(res, temp, gen)
+        if gumbel:
+            # paper semantics: train on the improved policy, act the
+            # halving winner (the Gumbel sample is the exploration)
+            pi = torch.where(res.valid, res.pi_improved, 0.0)
+            act = res.chosen
+        else:
+            # schedule clock: total moves (parallel) vs recorded (serial)
+            temp = temperature_at(c.n_rec if serial else c.states.ply, s)
+            pi = M.action_probs_slots(res, temp)
+            act = M.sample_actions(res, temp, gen)
         if capped:
             # cheap searches carry NO policy target (value-only sample)
             pi = torch.where(torch.as_tensor(is_full, device=dev), pi, 0.0)
@@ -319,9 +341,8 @@ def selfplay_games(
     iteration. ``eval_fn(features) -> (policy or logits, value)``, as for
     ``run_mcts``; ``generator`` is the CPU generator every draw comes from.
     Call under ``torch.inference_mode()`` with a net in eval mode."""
-    if s.search_algo != "puct":
-        raise NotImplementedError(
-            f"search_algo={s.search_algo!r} is not ported: ROADMAP A3 (Gumbel search)")
+    if s.search_algo not in ("puct", "gumbel"):
+        raise ValueError(f"unknown search_algo {s.search_algo!r}")
     if generator.device.type != "cpu":
         raise ValueError("self-play draws come from a CPU generator")
     device = torch.device(device)

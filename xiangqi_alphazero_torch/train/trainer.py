@@ -15,11 +15,13 @@ learner trains the candidate in train mode. The compute dtype follows
 kept: the net from ``seed``, the search stream (every self-play draw) from
 ``seed + 1``, the epoch plans from ``np.random.default_rng(seed + 2)``. A
 checkpoint holds all of it, so a resumed run is bit-identical to an
-uninterrupted one.
+uninterrupted one. With ``search_algo="gumbel"`` self-play runs the Gumbel
+search (the halving's winner acts, the improved policy is the target); the
+gated eval stays the reference's PUCT match, as in the JAX trainer.
 
 Not ported: the mesh, tensor-parallel and multi-process paths (ROADMAP A7),
-Gumbel self-play (A3), and the restart supervisor's heartbeat and fault
-injection (A10); ``check_supported`` raises for their options.
+and the restart supervisor's heartbeat and fault injection (A10);
+``check_supported`` raises for their options.
 """
 
 from __future__ import annotations
