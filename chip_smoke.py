@@ -83,7 +83,27 @@ and carried on):
 8. ``torch.profiler`` over one search of 100 simulations, PUCT and then
    Gumbel, for where an AI move's time goes (device busy share, launches, top kernels, host ops);
    then one search of the opening at 500 simulations by each, timed
-   without the profiler, interleaved (PUCT, Gumbel, Gumbel, PUCT).
+   without the profiler, interleaved (PUCT, Gumbel, Gumbel, PUCT);
+9. tools, at 128 channels x 6 blocks on the card: (a) ``python -m
+   xiangqi_alphazero_torch.serve export`` run as a user runs it, as 8
+   processes at once: phase 6's ``.pt`` and phase 6b (c)'s
+   ``checkpoint_iter2`` in the four formats; each artifact reloaded from
+   disk and verified against the card's float32 forward at atol 2e-3 (the
+   ``.pt`` and the npz in the port's net on the card, TorchScript through
+   ``torch.jit.load`` on the card, ONNX through the ``onnx_lite`` walker),
+   and the re-exported ``.pt`` serving the original's first AI move at 64
+   simulations; (b) the int8 twin on the card against the CPU on 512
+   playout boards: the first layer's int8 activations equal, logits and
+   values within 1e-3, legal argmax agreement >= 99%; then the int8,
+   float32 and bf16 forwards timed at B = 1, 8, 256, 512 (CUDA events,
+   interleaved); (c) ``utils.benchmark --profile standard --batch 256
+   --trace DIR``: its table, the kernel's launches equal to its rows'
+   prediction (the ``benchmark`` path of the ``kernels`` line), and
+   ``utils.trace_tools`` on the trace (device time within the traced
+   wall); (d) the native rules core built with the host's C++ compiler,
+   its movegen equal to the Python movegen on ~200 playout and edge
+   boards and taken by the oracle, ``minimax_move`` at depth 2 legal and
+   repeatable, and both movegens' rates.
 
 The line before the last lists each kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero before
@@ -104,6 +124,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -111,6 +132,7 @@ import torch
 from xiangqi_alphazero_torch.engine import env as E
 from xiangqi_alphazero_torch.engine import tables as T
 from xiangqi_alphazero_torch.engine.edge_boards import edge_boards, wild_boards
+from xiangqi_alphazero_torch.engine import native, oracle
 from xiangqi_alphazero_torch.engine.oracle import Position, decode_action
 from xiangqi_alphazero_torch.models import (
     XiangqiNet,
@@ -118,9 +140,11 @@ from xiangqi_alphazero_torch.models import (
     load_reference_pt,
     policy_logits_fn,
 )
+from xiangqi_alphazero_torch.models import quant as Q
 from xiangqi_alphazero_torch.ops import _build
 from xiangqi_alphazero_torch.ops import legal_mask as LM
 from xiangqi_alphazero_torch.search import GumbelConfig, MCTSConfig, run_gumbel_mcts, run_mcts
+from xiangqi_alphazero_torch.serve import export as TX
 from xiangqi_alphazero_torch.serve.api import make_server
 from xiangqi_alphazero_torch.serve.predictor import Predictor
 from xiangqi_alphazero_torch.train import arena as TARENA
@@ -131,6 +155,8 @@ from xiangqi_alphazero_torch.train import evaluate as TE
 from xiangqi_alphazero_torch.train.evaluate import EvalSettings, evaluate_pair
 from xiangqi_alphazero_torch.train.replay import ReplayBuffer
 from xiangqi_alphazero_torch.train.trainer import AlphaZeroTrainer
+from xiangqi_alphazero_torch.utils import benchmark as BENCH
+from xiangqi_alphazero_torch.utils import trace_tools as TT
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # H100 SXM, 64 INT32 lanes per SM, half the fp32 rate
@@ -811,9 +837,10 @@ def profile_selfplay(dev, trainer, smi: str, plies: int = 2) -> dict:
     return out
 
 
-def phase_train(dev, smi: str) -> dict:
+def phase_train(dev, smi: str, ckpt_dir: str) -> dict:
     """The training path: (a) self-play and eval, card == CPU; (b) one
-    learner step, card against CPU; (c) the trainer at full width."""
+    learner step, card against CPU; (c) the trainer at full width, its
+    checkpoints in ``ckpt_dir`` (phase 9 exports ``checkpoint_iter2``)."""
     t0 = time.perf_counter()
     base = TS.SelfPlaySettings(
         num_simulations=TRAIN_SIMS, max_game_length=TRAIN_PLIES, random_opening_moves=4,
@@ -848,8 +875,8 @@ def phase_train(dev, smi: str) -> dict:
     log(f"  (b) done in {time.perf_counter() - t1:.1f} s")
 
     t2 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        out = run_trainer(dev, tmp, smi)
+    os.makedirs(ckpt_dir)
+    out = run_trainer(dev, ckpt_dir, smi)
     log(f"  (c) done in {time.perf_counter() - t2:.1f} s")
     return out
 
@@ -955,7 +982,8 @@ def run_trainer(dev, ckpt_dir: str, smi: str, **options) -> dict:
     log(f"  training path ({cfg.search_algo} self-play) on {smi}: " + json.dumps(rates))
     log(f"  losses: first tenth {first:.4f}, last tenth {last:.4f} over {len(losses)} steps; "
         f"eval {ev}; kernel launches {launches} == predicted {want}")
-    return {"launches": launches, "rates": rates, "profile": prof}
+    return {"launches": launches, "rates": rates, "profile": prof,
+            "checkpoint": os.path.join(ckpt_dir, f"checkpoint_iter{cfg.num_iterations}")}
 
 
 # ------------------------------------------------------------ Gumbel path
@@ -1146,10 +1174,10 @@ def timed_inputs(dev, playouts, b: int) -> tuple:
 
 
 def interleaved(fns: dict, measure) -> dict:
-    """``measure(fn)`` of each of two functions in the order a, b, b, a;
-    the mean of the two readings of each (one function: two readings)."""
+    """``measure(fn)`` of each function in the order a, b, ..., ..., b, a;
+    the mean of the two readings of each."""
     names = list(fns)
-    order = names + names[::-1] if len(names) == 2 else names * 2
+    order = names + names[::-1]
     got = {n: [] for n in names}
     for n in order:
         got[n].append(measure(fns[n]))
@@ -1288,6 +1316,212 @@ def phase_profiles(dev, net) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ tools
+
+EXPORT_FORMATS = {"torch": "pt", "npz": "npz", "torchscript": "ts", "onnx": "onnx"}
+EXPORT_ATOL = 2e-3                       # serve/export.py's default, as in the JAX package
+EXPORT_SIMS = 64
+INT8_BOARDS = 512
+INT8_LOGIT_ATOL = 1e-3                   # int8 twin, card against CPU (logits and values)
+INT8_ARGMAX_AGREE = 0.99
+INT8_BATCHES = (1, 8, 256, 512)
+HARNESS_ARGS = ["--profile", "standard", "--batch", "256"]
+NATIVE_BOARDS = 200
+NATIVE_DEPTH = 2
+
+
+def phase_export(dev, sources: dict, out_dir: str) -> dict:
+    """(a) ``python -m xiangqi_alphazero_torch.serve export`` as a user runs
+    it, in every format from every source, all processes at once; then each
+    artifact reloaded from disk and verified here against the card's float32
+    forward of its source (TF32 off), and the re-exported ``.pt`` served."""
+    procs = {}
+    try:
+        for src_name, src in sources.items():
+            for fmt, ext in EXPORT_FORMATS.items():
+                out = os.path.join(out_dir, f"{src_name}.{ext}")
+                procs[(src_name, fmt)] = (out, subprocess.Popen(
+                    [sys.executable, "-m", "xiangqi_alphazero_torch.serve", "export",
+                     "--checkpoint", src, "--format", fmt, "--output", out],
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for (src_name, fmt), (out, proc) in procs.items():
+            text = proc.communicate(timeout=600)[0]
+            assert proc.returncode == 0, (
+                f"serve export {src_name} {fmt} exited {proc.returncode}:\n{text}")
+            log(f"  export {src_name} -> {fmt}: " + " | ".join(text.strip().splitlines()))
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    diffs = {}
+    for src_name, src in sources.items():
+        net = Predictor.load(src, device=dev).net
+        for fmt, ext in EXPORT_FORMATS.items():
+            d = TX.verify_export(fmt, os.path.join(out_dir, f"{src_name}.{ext}"), net,
+                                 atol=EXPORT_ATOL)
+            diffs[f"{src_name}/{fmt}"] = d
+            log(f"  {src_name} {fmt}: reloaded and verified on the card (onnx: onnx_lite walker), "
+                f"max|dlogits| {d['max_abs_dlogits']:.6g}, max|dvalue| {d['max_abs_dvalue']:.6g} "
+                f"(atol {EXPORT_ATOL})")
+    moves = [Predictor.load(path, num_simulations=EXPORT_SIMS, device=dev)
+             .ai_move(Position())["ai_move"]["action"]
+             for path in (sources["random"], os.path.join(out_dir, "random.pt"))]
+    assert moves[0] == moves[1], f"the re-exported .pt moves {moves[1]}, the original {moves[0]}"
+    log(f"  re-exported .pt serves the original's first AI move at {EXPORT_SIMS} sims: {moves[0]}")
+    return diffs
+
+
+def phase_int8(dev, playouts, net) -> dict:
+    """(b) the int8 twin of the 128 x 6 net on the card against the CPU on
+    512 playout boards; then int8, float32 and bf16 forwards timed with CUDA
+    events at B = 1, 8, 256, 512, interleaved."""
+    boards, sides = timed_inputs(dev, playouts, INT8_BOARDS)
+    feats = E.features(boards, sides)
+    qg, qc = Q.quantize_net(net, device=dev), Q.quantize_net(net, device="cpu")
+    with torch.inference_mode():
+        pg = Q._im2col(feats).reshape(INT8_BOARDS * E.NSQ, -1)
+        ag, sg = Q._quant_act(pg)
+        ac, sc = Q._quant_act(pg.cpu())
+        assert torch.equal(ag.cpu(), ac) and torch.equal(sg.cpu(), sc), "stem int8 activations"
+        lg, vg = Q.int8_forward(qg, feats)
+        lc, vc = Q.int8_forward(qc, feats.cpu())
+        lf, vf = net(feats)
+    err_l = float((lg.cpu() - lc).abs().max())
+    err_v = float((vg.cpu() - vc).abs().max())
+    assert err_l <= INT8_LOGIT_ATOL and err_v <= INT8_LOGIT_ATOL, (err_l, err_v)
+    legal = E.legal_mask(boards.cpu(), sides.cpu())
+
+    def legal_argmax(x):
+        return torch.where(legal, x.cpu(), -torch.inf).argmax(dim=1)
+
+    agree = float((legal_argmax(lg) == legal_argmax(lc)).float().mean())
+    assert agree >= INT8_ARGMAX_AGREE, f"int8 card vs CPU legal argmax agreement {agree}"
+    vs_float = float((legal_argmax(lg) == legal_argmax(lf)).float().mean())
+    corr = float(np.corrcoef(vg.cpu().numpy().ravel(), vf.cpu().numpy().ravel())[0, 1])
+    log(f"  (b) int8 on the card == CPU: {INT8_BOARDS} boards, stem int8 activations equal; "
+        f"max|dlogits| {err_l:.6g}, max|dvalue| {err_v:.6g} (atol {INT8_LOGIT_ATOL}); legal "
+        f"argmax agreement {agree:.4f}; against the float32 net: legal argmax agreement "
+        f"{vs_float:.4f}, value correlation {corr:.4f}")
+    bf16 = copy.deepcopy(net)
+    bf16.dtype = torch.bfloat16
+    times = {}
+    with torch.inference_mode():
+        for b in INT8_BATCHES:
+            x = E.features(*timed_inputs(dev, playouts, b))
+            iters = 200 if b <= 8 else 50
+            fns = {"float32": lambda: net(x), "bf16": lambda: bf16(x),
+                   "int8": lambda: Q.int8_forward(qg, x)}
+            times[b] = interleaved(fns, lambda fn: cuda_ms(fn, iters))
+            log(f"  forward 128x6 B={b}, ms per call (CUDA events; order float32, bf16, int8, "
+                f"int8, bf16, float32): " + ", ".join(f"{k} {v:.5f}" for k, v in times[b].items())
+                + f"; int8 / bf16 {times[b]['int8'] / times[b]['bf16']:.3f}")
+    return {"max_abs_dlogits": err_l, "max_abs_dvalue": err_v, "argmax_agree": agree,
+            "vs_float_agree": vs_float, "value_corr": corr, "ms": times}
+
+
+def phase_harness(trace_dir: str) -> dict:
+    """(c) the profiling harness at the standard preset on the card with a
+    trace; the kernel's launches against its rows' counts; then the trace
+    read by trace_tools."""
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    out = BENCH.main(HARNESS_ARGS + ["--trace", trace_dir])
+    torch.cuda.synchronize()
+    launches = LM.legal_mask_cuda.launches
+    want = out["setup_launches"] + sum(r["calls"] * r["launches_per_call"] for r in out["rows"])
+    assert launches == want, f"harness launches {launches} != predicted {want}"
+    log(f"  (c) harness launches {launches} == predicted {want} "
+        f"(1 reset + sum of calls x launches per call over the rows)")
+    events = TT.load_trace_events(trace_dir)
+    log("\n".join(TT.report(events, top=15)))
+    rows = TT.aggregate_device_ops(events)
+    device_ms, wall_ms = sum(ms for _, ms, _ in rows), TT.traced_wall_ms(events)
+    assert 0 < device_ms <= wall_ms, (device_ms, wall_ms)
+    traced = sum(r["launches_per_call"] for r in out["rows"])
+    seen = sum(n for name, _, n in rows if LM.KERNEL_SYMBOL in name)
+    assert 0 < seen <= traced, f"trace holds {seen} launches of the mask, {traced} were made"
+    log(f"  trace: {len(events)} events, device {device_ms:.3f} ms over a traced wall of "
+        f"{wall_ms:.3f} ms (busy share {device_ms / wall_ms:.4f}); {seen} of the {traced} traced "
+        f"mask launches kept")
+    return {"launches": launches, "rows": out["rows"], "device_ms": device_ms,
+            "wall_ms": wall_ms, "trace_mask_launches": seen}
+
+
+def phase_native(playouts) -> dict:
+    """(d) the native rules core: built with the host's compiler, equal to
+    the Python movegen on ~200 playout and edge boards, taken by the
+    oracle; minimax at depth 2 legal and repeatable; movegen rates."""
+    assert native.available(), f"the native core did not build (compiler {native.compiler()})"
+    with tempfile.TemporaryDirectory() as tmp:   # the oracle built it already: time a build
+        t0 = time.perf_counter()
+        assert native._build(Path(tmp) / "libxq_core.so"), "the native core did not build"
+        log(f"  (d) native core builds with {native.compiler()} in "
+            f"{time.perf_counter() - t0:.2f} s; loaded {native.library_path().name}")
+    boards, sides = playouts
+    idx = torch.linspace(0, boards.shape[1] - 1, NATIVE_BOARDS // boards.shape[0]).long()
+    cases = [(b.numpy(), int(s)) for ply in range(boards.shape[0])
+             for b, s in zip(boards[ply, idx].cpu(), sides[ply, idx].cpu())]
+    cases += [(b, int(s)) for b, s in edge_boards().values()]
+    positions = []
+    for b, s in cases:
+        p = Position()
+        p.board, p.side = [int(x) for x in b], s
+        positions.append(p)
+    oracle.use_python_rules(True)
+    try:
+        t0 = time.perf_counter()
+        py = [p.legal_actions() for p in positions]
+        t_py = time.perf_counter() - t0
+    finally:
+        oracle.use_python_rules(False)
+    t0 = time.perf_counter()
+    nat = [native.gen_legal(p.board_array(), p.side) for p in positions]
+    t_nat = time.perf_counter() - t0
+    assert nat == py, "native gen_legal != the Python movegen"
+    calls = []
+    gen_legal = native.gen_legal
+    native.gen_legal = lambda b, s: calls.append(1) or gen_legal(b, s)
+    try:
+        opening = Position().legal_actions()
+    finally:
+        native.gen_legal = gen_legal
+    assert calls == [1] and len(opening) == 44, "the oracle did not take the native path"
+    mid = len(positions) // 2
+    for p, legal in ((Position(), opening), (positions[mid], py[mid])):
+        a = native.minimax_move(p.board_array(), p.side, NATIVE_DEPTH)
+        assert a in legal, f"minimax depth {NATIVE_DEPTH} moved {a}, not a legal move"
+        assert a == native.minimax_move(p.board_array(), p.side, NATIVE_DEPTH), "minimax repeat"
+    rates = {"native_pos_per_s": len(positions) / t_nat, "python_pos_per_s": len(positions) / t_py}
+    log(f"  native gen_legal == Python movegen on {len(positions)} boards; the oracle takes the "
+        f"native path; minimax depth {NATIVE_DEPTH} legal and repeatable; movegen "
+        f"{rates['native_pos_per_s']:.1f} positions/s native, {rates['python_pos_per_s']:.1f} "
+        f"Python ({rates['native_pos_per_s'] / rates['python_pos_per_s']:.1f}x)")
+    return rates
+
+
+def phase_tools(dev, playouts, net, pt: str, ckpt: str, tmp: str) -> dict:
+    """Phase 9 at the shipped width on the card: (a) export, (b) the int8
+    twin, (c) the profiling harness and its trace, (d) the native core."""
+    out_dir = os.path.join(tmp, "exports")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    export = phase_export(dev, {"random": pt, "checkpoint": ckpt}, out_dir)
+    log(f"  (a) done in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    int8 = phase_int8(dev, playouts, net)
+    log(f"  (b) done in {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    harness = phase_harness(os.path.join(tmp, "trace"))
+    log(f"  (c) done in {time.perf_counter() - t2:.1f} s")
+    t3 = time.perf_counter()
+    nat = phase_native(playouts)
+    log(f"  (d) done in {time.perf_counter() - t3:.1f} s")
+    return {"export": export, "int8": int8, "harness": harness, "native": nat,
+            "benchmark_launches": harness["launches"]}
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1324,10 +1558,13 @@ def main(argv=None) -> int:
         write_random_pt(os.path.join(tmp, name), SEED)
         net = timed("5 net", phase_net, dev, os.path.join(tmp, name))
         serve = timed("6 serve", phase_serve, dev, tmp, name, SIMS, SEED)
-        train = timed("6b train", phase_train, dev, device["smi"])
+        ckpt = os.path.join(tmp, "train")
+        train = timed("6b train", phase_train, dev, device["smi"], ckpt)
         gumbel = timed("6c gumbel", phase_gumbel, dev, tmp, name, device["smi"])
-    timings = timed("7 timings", phase_timings, dev, playouts, net, dense)
-    search_s = timed("8 profile", phase_profiles, dev, net)
+        timings = timed("7 timings", phase_timings, dev, playouts, net, dense)
+        search_s = timed("8 profile", phase_profiles, dev, net)
+        tools = timed("9 tools", phase_tools, dev, playouts, net, os.path.join(tmp, name),
+                      train["checkpoint"], tmp)
     log(f"AI move latency at {SIMS} sims: "
         f"{[round(x, 4) for x in serve['ai_move_s']]} s; 4 concurrent session moves: "
         f"{[round(x, 4) for x in serve['session_move_s']]} s; Gumbel AI move latency "
@@ -1347,7 +1584,8 @@ def main(argv=None) -> int:
                                  "train": train["launches"][k["name"]],
                                  "gumbel_serve": gumbel["serve"]["launches"][k["name"]],
                                  "gumbel_train": gumbel["train"]["launches"][k["name"]],
-                                 "arena": gumbel["arena"]["launches"]},
+                                 "arena": gumbel["arena"]["launches"],
+                                 "benchmark": tools["benchmark_launches"]},
             "max_abs_err": err, "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": k["library_ms"],

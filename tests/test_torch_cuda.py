@@ -1,6 +1,6 @@
 """Card-only checks of the PyTorch port, marked ``cuda``: the legal-mask
-kernel against its plain version, the net and the search on the card
-against the CPU, and the serving path through the kernel. Each test asks
+kernel against its plain version, the net, the search and the int8 twin
+on the card against the CPU, and the serving path through the kernel. Each test asks
 the ``cuda`` fixture whether a card is present, and skips without one.
 
 This file imports no JAX, so it also runs where only the port is installed
@@ -17,6 +17,7 @@ from xiangqi_alphazero_torch.engine import env as E
 from xiangqi_alphazero_torch.engine.edge_boards import edge_boards, wild_boards
 from xiangqi_alphazero_torch.engine.oracle import Position
 from xiangqi_alphazero_torch.models import XiangqiNet
+from xiangqi_alphazero_torch.models import quant as Q
 from xiangqi_alphazero_torch.ops import legal_mask as LM
 from xiangqi_alphazero_torch.search import MCTSConfig, run_mcts
 from xiangqi_alphazero_torch.serve import api as A
@@ -148,3 +149,28 @@ def test_serving_path_on_card(cuda):
     assert out["ai_move"]["action"] in pos.legal_actions()
     svc = A.GameService(model_dirs=[], device=cuda)
     assert svc.models()[1]["device"] == torch.cuda.get_device_name(cuda)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("batch", [8, 40])
+def test_int8_on_card_matches_cpu(cuda, batch):
+    """The int8 twin through ``torch._int_mm`` on the card (M, K and N
+    padded) against the same twin on the CPU: the first layer's int8
+    activations and every int32 product exactly, logits within 1e-4 (both
+    devices dequantize with the same elementwise float ops; the value
+    head's small float denses sum in other orders)."""
+    torch.manual_seed(7)
+    net = XiangqiNet(32, 2).eval()
+    boards, sides = _boards(cuda, games=batch, plies=10, seed=batch)
+    feats = E.features(boards[-batch:], sides[-batch:])
+    qc, qg = Q.quantize_net(net, device="cpu"), Q.quantize_net(net, device=cuda)
+    pc = Q._im2col(feats.cpu()).reshape(batch * 90, -1)
+    pg = Q._im2col(feats).reshape(batch * 90, -1)
+    (ac, sc), (ag, sg) = Q._quant_act(pc), Q._quant_act(pg)
+    assert torch.equal(ag.cpu(), ac) and torch.equal(sg.cpu(), sc)
+    n = qc.stem.w_q.shape[1]
+    assert torch.equal(Q._int8_matmul(ag, qg.stem.w_mm, n).cpu(), Q._int8_matmul(ac, qc.stem.w_mm, n))
+    lc, vc = Q.int8_forward(qc, feats.cpu())
+    lg, vg = Q.int8_forward(qg, feats)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+    torch.testing.assert_close(vg.cpu(), vc, rtol=0, atol=1e-4)

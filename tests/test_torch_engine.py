@@ -55,6 +55,18 @@ def playout_states(games: int = 8, plies: int = 40, seed: int = 0):
         yield js, ts
 
 
+def test_opening_action_44_steps_as_jax():
+    """The profiling harness (``utils/benchmark.py``) steps every board of
+    the opening with action 44 (square 0 -> 44: the red rook to an empty
+    square it cannot reach), as the JAX harness does: JAX ``v_step`` applies
+    it without a check, and so does the port."""
+    want = jax.jit(JE.v_step)(JE.reset_batch_jit(8), jnp.full((8,), 44, jnp.int32))
+    got = TE.step_batch(TE.reset_batch(8), torch.full((8,), 44, dtype=torch.int32))
+    for f in _ENV_FIELDS:
+        assert np.array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f))), f
+    assert got.board[0, 44] == 5 and got.board[0, 0] == 0 and (got.side == -1).all()
+
+
 @pytest.fixture(scope="module")
 def boards():
     """(int8[N, 90], int8[N]) from playouts, then the edge boards."""

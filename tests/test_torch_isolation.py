@@ -43,6 +43,11 @@ def test_importing_every_module_loads_no_jax():
     names += ["xiangqi_alphazero_torch.train", "xiangqi_alphazero_torch.train.trainer",
               "xiangqi_alphazero_torch.search.gumbel", "xiangqi_alphazero_torch.train.arena",
               "xiangqi_alphazero_torch.train.elo"]
+    # the export, int8, profiling and native modules, by name as well
+    names += ["xiangqi_alphazero_torch.serve.export", "xiangqi_alphazero_torch.serve.onnx_lite",
+              "xiangqi_alphazero_torch.models.quant", "xiangqi_alphazero_torch.utils.profiling",
+              "xiangqi_alphazero_torch.utils.trace_tools", "xiangqi_alphazero_torch.utils.benchmark",
+              "xiangqi_alphazero_torch.engine.native"]
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -108,3 +113,21 @@ def test_arena_and_elo_raise_without_cuda(monkeypatch, tmp_path):
         elo.main(["--models", path, path])
     assert arena.main(["--a", path, "--b", path, "--games", "2", "--sims", "2",
                        "--max-game-length", "2", "--algo-a", "gumbel", "--device", "cpu"]) == 0
+
+
+def test_export_and_benchmark_raise_without_cuda(monkeypatch, tmp_path, capsys):
+    """``serve export`` and ``utils.benchmark`` run on CUDA unless given
+    ``--device cpu``."""
+    from xiangqi_alphazero_torch.serve.export import export_torch_checkpoint
+    from xiangqi_alphazero_torch.utils import benchmark
+
+    src = str(tmp_path / "m.pt")
+    export_torch_checkpoint(src, XiangqiNet(8, 1))
+    out = str(tmp_path / "o.pt")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["export", "--checkpoint", src, "--output", out])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmark.main(["--batch", "2", "--sims", "2", "--channels", "8", "--blocks", "1"])
+    assert cli.main(["export", "--checkpoint", src, "--output", out, "--device", "cpu"]) == 0
+    assert "verified" in capsys.readouterr().out

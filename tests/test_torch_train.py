@@ -372,19 +372,29 @@ def _without_times(stats):
     return stats
 
 
-def test_trainer_two_iterations_and_bit_identical_resume(tmp_path):
+@pytest.fixture(scope="module")
+def two_iterations(tmp_path_factory):
+    """(trainer, its checkpoint directory) after a two-iteration CPU run."""
     from xiangqi_alphazero_torch.train.trainer import AlphaZeroTrainer
 
-    full = AlphaZeroTrainer(_tiny_cfg(tmp_path / "full"), device="cpu")
+    d = tmp_path_factory.mktemp("two_iterations") / "full"
+    full = AlphaZeroTrainer(_tiny_cfg(d), device="cpu")
     full.train()
-    stats = json.load(open(tmp_path / "full" / "training_stats.json"))
+    return full, d
+
+
+def test_trainer_two_iterations_and_bit_identical_resume(two_iterations, tmp_path):
+    from xiangqi_alphazero_torch.train.trainer import AlphaZeroTrainer
+
+    full, src = two_iterations
+    stats = json.load(open(src / "training_stats.json"))
     assert [s["iteration"] for s in stats] == [1, 2]
     assert stats[0]["training"]["batches"] >= 1 and stats[1]["evaluation"]["plies"] >= 1
     assert full.total_games == 4
-    assert os.path.exists(tmp_path / "full" / "checkpoint_iter1.replay.npz")
+    assert os.path.exists(src / "checkpoint_iter1.replay.npz")
 
     # a fresh trainer resumes iteration 1's checkpoint and plays iteration 2
-    src, dst = tmp_path / "full", tmp_path / "resumed"
+    dst = tmp_path / "resumed"
     dst.mkdir()
     for name in ("checkpoint_iter1", "checkpoint_iter1.replay.npz", "training_stats.json"):
         shutil.copy(src / name, dst / name)
@@ -395,6 +405,39 @@ def test_trainer_two_iterations_and_bit_identical_resume(tmp_path):
     _assert_tree_equal(_state(resumed), _state(full))
     assert resumed.total_games == full.total_games
     assert _without_times(resumed.training_stats) == _without_times(full.training_stats)
+
+
+def test_training_checkpoint_serves_as_its_best_model(two_iterations, tmp_path):
+    """``Predictor.load`` serves a port ``checkpoint_iter{N}`` (its best net,
+    with its topology): the checkpoint of the two-iteration CPU run gives
+    the same searches and AI moves as its ``best_model.pt``, and ``serve
+    export`` writes it to the same ``.pt``."""
+    from xiangqi_alphazero_torch.engine.oracle import Position
+    from xiangqi_alphazero_torch.serve.__main__ import main as serve_main
+    from xiangqi_alphazero_torch.serve.predictor import Predictor
+
+    _, d = two_iterations
+    ckpt, best = str(d / "checkpoint_iter2"), str(d / "best_model.pt")
+    a = Predictor.load(ckpt, num_simulations=8, device="cpu")
+    b = Predictor.load(best, num_simulations=8, device="cpu")
+    assert (a.net.channels, a.net.blocks) == (CH, BL)
+    for (k, x), y in zip(a.net.state_dict().items(), b.net.state_dict().values()):
+        assert torch.equal(x, y), k
+    pa, pb = Position(), Position()
+    for _ in range(3):
+        for x, y in zip(a.search_position(pa), b.search_position(pb)):
+            np.testing.assert_array_equal(x, y)
+        assert a.ai_move(pa)["ai_move"] == b.ai_move(pb)["ai_move"]
+    assert pa.board == pb.board
+
+    out = str(tmp_path / "exported.pt")
+    assert serve_main(["export", "--checkpoint", ckpt, "--format", "torch", "--output", out,
+                       "--device", "cpu"]) == 0
+    got = torch.load(out, weights_only=True)
+    want = torch.load(best, weights_only=True)
+    assert got["config"] == want["config"]
+    for k, v in want["model_state_dict"].items():
+        assert torch.equal(got["model_state_dict"][k], v), k
 
 
 def test_gumbel_trainer_learns_and_resumes_bit_identically(tmp_path):

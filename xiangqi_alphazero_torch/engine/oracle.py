@@ -12,8 +12,10 @@ It is also the host-side engine for the serving/demo layer, where a single
 interactive game does not justify a device round-trip.
 
 This is the PyTorch port's own copy of ``xiangqi_alphazero_tpu.engine.oracle``
-(the port imports nothing of the JAX package). The optional ctypes native
-core is left out: legal moves always come from the Python movegen.
+(the port imports nothing of the JAX package). ``legal_actions`` runs the
+port's native C++ core (``engine/native``) when it is built, as the JAX
+oracle does, and the Python movegen when no compiler is present or
+``use_python_rules(True)`` forces it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,23 @@ PIECE_NAMES = {
     0: "．", 1: "帅", 2: "仕", 3: "相", 4: "马", 5: "车", 6: "炮", 7: "兵",
     -1: "将", -2: "士", -3: "象", -4: "马", -5: "车", -6: "炮", -7: "卒",
 }
+
+_FORCE_PYTHON_RULES = False
+
+
+def use_python_rules(force: bool) -> None:
+    """Force the pure-Python movegen (disable the native core)."""
+    global _FORCE_PYTHON_RULES
+    _FORCE_PYTHON_RULES = force
+
+
+def _native_lib():
+    if _FORCE_PYTHON_RULES:
+        return None
+    from . import native
+
+    return native.load()
+
 
 _ORTH = ((1, 0), (-1, 0), (0, 1), (0, -1))
 _DIAG = ((1, 1), (1, -1), (-1, 1), (-1, -1))
@@ -295,18 +314,28 @@ class Position:
             b[f], b[t] = moving, captured
 
     def legal_actions(self) -> List[int]:
-        """All legal actions for the side to move, ascending (cached)."""
+        """All legal actions for the side to move, ascending (cached).
+
+        Uses the native C++ core when available (same auto-detect-with-
+        fallback contract as the reference's Cython loader, game.py:31-47,
+        501-518); ``use_python_rules(True)`` forces the pure-Python path
+        (differential tests rely on it)."""
         if self._legal_cache is not None:
             return self._legal_cache
-        out = []
-        for s in range(NSQ):
-            p = self.board[s]
-            if p == 0 or (p > 0) != (self.side > 0):
-                continue
-            for t in self._piece_dests(s):
-                if self._move_safe(s, t):
-                    out.append(s * NSQ + t)
-        out.sort()
+        if _native_lib():
+            from . import native
+
+            out = native.gen_legal(self.board_array(), self.side)
+        else:
+            out = []
+            for s in range(NSQ):
+                p = self.board[s]
+                if p == 0 or (p > 0) != (self.side > 0):
+                    continue
+                for t in self._piece_dests(s):
+                    if self._move_safe(s, t):
+                        out.append(s * NSQ + t)
+            out.sort()
         self._legal_cache = out
         return out
 

@@ -1,8 +1,9 @@
 """Serving predictor: checkpoint loading, search, analysis payload.
 
 Port of ``xiangqi_alphazero_tpu.serve.predictor``. Loads reference-layout
-``.pt`` checkpoints (the JAX package's orbax bundles are exported to one
-with ``python -m xiangqi_alphazero_tpu.serve export --format torch``). The
+``.pt`` checkpoints and the port's own training checkpoints (the JAX
+package's orbax bundles are exported to a ``.pt`` with ``python -m
+xiangqi_alphazero_tpu.serve export --format torch``). The
 search is the batched PUCT search (``algo="puct"``, the reference's
 semantics) or the Gumbel root search (``algo="gumbel"``, stronger per
 simulation, so it can serve at a fraction of the simulations); the
@@ -22,6 +23,7 @@ would let the card's search break near-ties differently from the CPU's.
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -91,6 +93,31 @@ def find_models(search_dirs: List[str]) -> List[Dict]:
     return out
 
 
+def load_serving_net(path: str) -> XiangqiNet:
+    """The net that the file at ``path`` serves, on the CPU in eval mode: a
+    reference-layout ``.pt`` (``{"model_state_dict", "config"}``), or a
+    training checkpoint of ``train/checkpoint.py`` (its ``best_params``,
+    with its ``config``'s topology, as the JAX Predictor takes
+    ``best_params`` from a full checkpoint). An orbax directory of the JAX
+    package is refused with the command that exports it."""
+    refused = (f"{path} is not a .pt model or a training checkpoint; export an "
+               "orbax model with " + _EXPORT_HINT.format(path=path))
+    if os.path.isdir(path):
+        raise ValueError(refused)
+    if path.endswith(".pt"):
+        return load_reference_pt(path)
+    try:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, RuntimeError, EOFError) as e:
+        raise ValueError(refused) from e
+    if not isinstance(payload, dict) or "best_params" not in payload:
+        raise ValueError(refused)
+    mc = payload["config"]
+    net = XiangqiNet(channels=int(mc["num_channels"]), blocks=int(mc["num_res_blocks"]))
+    net.load_state_dict(payload["best_params"])
+    return net.eval()
+
+
 class Predictor:
     def __init__(
         self,
@@ -117,13 +144,10 @@ class Predictor:
     @classmethod
     def load(cls, path: str, num_simulations: int = 500, algo: str = "puct",
              device=None) -> "Predictor":
-        """A Predictor serving the reference-layout ``.pt`` at ``path``."""
-        if not path.endswith(".pt") or os.path.isdir(path):
-            raise ValueError(
-                f"{path} is not a .pt checkpoint; export an orbax model with "
-                + _EXPORT_HINT.format(path=path)
-            )
-        return cls(load_reference_pt(path), num_simulations, algo=algo,
+        """A Predictor serving the model at ``path``: a reference-layout
+        ``.pt``, or the best net of a full training checkpoint
+        (``checkpoint_iter{N}``), as the JAX Predictor serves both."""
+        return cls(load_serving_net(path), num_simulations, algo=algo,
                    device=device)
 
     def with_simulations(self, num_simulations: int) -> "Predictor":
