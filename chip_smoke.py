@@ -105,6 +105,40 @@ and carried on):
    boards and taken by the oracle, ``minimax_move`` at depth 2 legal and
    repeatable, and both movegens' rates.
 
+10. multirank, the multi-device path at 128 channels x 6 blocks, float32
+   with TF32 off: (a) data-parallel, 2 ranks over gloo pinned to one card
+   against 1 rank: the probes (``xiangqi_alphazero_torch.parallel.probe``)
+   play 64 games of self-play (16 simulations, a 16-move cap) and an
+   8-game eval with the exact mock nets, whose records, replay ring and
+   outcomes equal 1 rank's exactly; with the real net they print the share
+   of identical games; one learner step at batch 256 against 1 rank's
+   (``check_step``: losses, Adam's first moment, which holds the reduced,
+   clipped gradient, the parameters and the batch-norm statistics), and 8
+   steps of the trainer's learner path, each within MR_NOISE times the
+   witness of rounding alone, 1 rank on the rows in reverse order; the
+   learner step under the profiler, the collectives'
+   time read from the trace; a profile of one 2-rank ply (the card's idle
+   share); then the training CLI on 1 rank and on 2 (the quick preset at
+   full width, only depth cut, logged; both under ``--auto-restart 1``,
+   which takes cuDNN's deterministic algorithms), its losses and
+   max|dparam| printed, every rank's kernel launches equal to its loop
+   counters; (b) TP, ``--model-parallel 2`` over the 2 ranks: the sharded
+   forward against the replicated one (logits atol 1e-4, values 1e-5), one
+   TP step checked as in (a), and one CLI iteration; (c) the 2-rank pod
+   with a fault injected at iteration 2 on every rank under
+   ``--auto-restart 1``: its ``training_stats.json`` equals the
+   uninterrupted 2-rank run's exactly (times left out); (d) where there
+   are two cards, the probes of (a) over NCCL, a card a rank, checked as
+   in (a), and the CLI as one process with ``--mesh-mode auto``, which
+   starts a rank a card (else logged as unmeasured); (e) one learner step
+   with cuDNN's default and its deterministic algorithms, interleaved.
+   Every launch has a timeout. It prints self-play simulations/s (1 rank;
+   per rank and in all at 2), learner ms a step at 1 and 2 ranks, the
+   collectives' ms a step, the idle share and the phase's wall, beside the
+   card's name and power limit. ``--only multirank`` runs phases 1, 2 and
+   10; ``--only nccl`` phases 1, 2 and (d) with the 1-rank runs it is held
+   against.
+
 The line before the last lists each kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero before
 printing any result.
@@ -129,6 +163,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from xiangqi_alphazero_torch.distributed import free_port
 from xiangqi_alphazero_torch.engine import env as E
 from xiangqi_alphazero_torch.engine import tables as T
 from xiangqi_alphazero_torch.engine.edge_boards import edge_boards, wild_boards
@@ -143,6 +178,8 @@ from xiangqi_alphazero_torch.models import (
 from xiangqi_alphazero_torch.models import quant as Q
 from xiangqi_alphazero_torch.ops import _build
 from xiangqi_alphazero_torch.ops import legal_mask as LM
+from xiangqi_alphazero_torch.parallel import probe as PROBE
+from xiangqi_alphazero_torch.parallel.probe import dyadic_eval, peaked_dyadic_eval
 from xiangqi_alphazero_torch.search import GumbelConfig, MCTSConfig, run_gumbel_mcts, run_mcts
 from xiangqi_alphazero_torch.serve import export as TX
 from xiangqi_alphazero_torch.serve.api import make_server
@@ -335,15 +372,6 @@ def advance_random(plies: int, seed: int) -> Position:
     fresh = Position()
     fresh.board, fresh.side = list(pos.board), pos.side
     return fresh
-
-
-def dyadic_eval(feats):
-    """Uniform 1/64 priors and value (own - opp) / 8: exact in float32 in
-    any summation order, so the card and the CPU must choose alike."""
-    own = feats[..., :7].sum(dim=(1, 2, 3))
-    opp = feats[..., 7:14].sum(dim=(1, 2, 3))
-    probs = torch.full((feats.shape[0], E.ACTION_SPACE), 1.0 / 64.0, device=feats.device)
-    return probs, (own - opp) / 8.0
 
 
 def phase_search(dev, sims: int = 64) -> None:
@@ -550,22 +578,6 @@ TRAIN_FLEET, TRAIN_SIMS, TRAIN_PLIES = 8, 16, 24       # (a): card against CPU
 LEARNER_BATCH = 256                                     # (b)
 SP_RECORDS = ("boards", "sides", "pi_actions", "pi_probs", "values", "rec",
               "winners", "plies", "total_moves")
-
-
-def peaked_dyadic_eval(mult: int):
-    """An exact mock network with peaked priors, for the eval match: the
-    prior of action a is ((a * mult) % 64 + 1) / 1024, the value
-    (own - opp) / 8. Sums of these over a row's slots are exact in float32,
-    so the card and the CPU search alike; two multipliers make two nets
-    that choose different moves (uniform priors would let either net's
-    moves stand for the other's)."""
-    table = torch.tensor([((a * mult) % 64 + 1) / 1024.0 for a in range(E.ACTION_SPACE)])
-
-    def f(feats):
-        _, value = dyadic_eval(feats)
-        return table.to(feats.device).expand(feats.shape[0], -1), value
-
-    return f
 
 
 def check_selfplay_card_vs_cpu(dev, s: TS.SelfPlaySettings, pi_atol: float):
@@ -1522,6 +1534,512 @@ def phase_tools(dev, playouts, net, pt: str, ckpt: str, tmp: str) -> dict:
             "benchmark_launches": harness["launches"]}
 
 
+# ------------------------------------------------------------ multi-rank path
+
+MR_RANKS = 2
+MR_TIMEOUT = 900               # s, every launch of phase 10
+MR_GAMES, MR_SIMS, MR_PLIES = 64, 16, 16
+MR_LR = 1e-3                   # the probes' learner step
+# the training CLI at the shipped width (the quick preset's loop; float32
+# for the comparisons); only depth is cut, each cut logged in the phase
+MR_CUTS = {"--games-per-iter": "64", "--simulations": "16", "--max-game-length": "16",
+           "--batch-size": "256", "--epochs": "1", "--eval-games": "8",
+           "--eval-interval": "2", "--save-interval": "1", "--min-buffer": "256",
+           "--iterations": "2"}
+MR_ARGS = ["--mode", "quick", "--channels", str(CHANNELS), "--res-blocks", str(BLOCKS),
+           "--dtype", "float32", "--seed", str(SEED + 7)] + [
+    x for kv in MR_CUTS.items() for x in kv]
+MR_LOSS_RTOL = 1e-4            # the learner against one rank on the same batch
+MR_STEPS = 8                   # the learner probes' multi-step plan
+MR_PROFILED_STEPS = 5          # learner steps under the profiler
+MR_NOISE = 4                   # the sharded learner within this times the witness
+STEP_BATCH = ("boards", "sides", "pi_actions", "pi_probs", "z", "w")
+
+
+def visible_cards() -> list:
+    """The ids of the cards this process sees, as CUDA_VISIBLE_DEVICES
+    names them."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return env.split(",") if env else [str(i) for i in range(torch.cuda.device_count())]
+
+
+_LAUNCH_LINE = "legal_mask kernel launches: "
+
+
+def start_cli(dev, out_dir: str, n: int, extra=(), env=None, rank_env=None) -> list:
+    """The training CLI as ``n`` rank processes (one plain process for
+    n = 1), TF32 off (NVIDIA_TF32_OVERRIDE=0), each rank's output to
+    ``out_dir/rank{i}.log``; returns (process, log path) pairs."""
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    procs = []
+    for i in range(n):
+        dist_args = [] if n == 1 else ["--coordinator", f"127.0.0.1:{port}",
+                                       "--num-processes", str(n), "--process-id", str(i)]
+        e = dict(os.environ, NVIDIA_TF32_OVERRIDE="0", OMP_NUM_THREADS="1",
+                 **(env or {}), **((rank_env or {}).get(i, {})))
+        path = os.path.join(out_dir, f"rank{i}.log")
+        with open(path, "w") as fh:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "xiangqi_alphazero_torch.train", *MR_ARGS, *extra,
+                 "--device", dev.type,
+                 "--checkpoint-dir", os.path.join(out_dir, "ckpt"), *dist_args],
+                stdout=fh, stderr=subprocess.STDOUT, env=e,
+                cwd=os.path.dirname(os.path.abspath(__file__))), path))
+    return procs
+
+
+def wait_cli(procs: list, what: str) -> list:
+    """Every rank's log text; fails (killing the rest) if one exits
+    nonzero or outlives MR_TIMEOUT."""
+    deadline = time.monotonic() + MR_TIMEOUT
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = [Path(path).read_text() for _, path in procs]
+    for i, ((p, _), text) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"{what}: rank {i} exited {p.returncode}:\n{text[-4000:]}"
+    return logs
+
+
+def cli_stats(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "ckpt", "training_stats.json")) as f:
+        return json.load(f)
+
+
+def without_times(stats):
+    if isinstance(stats, dict):
+        return {k: without_times(v) for k, v in stats.items() if k != "time"}
+    if isinstance(stats, list):
+        return [without_times(s) for s in stats]
+    return stats
+
+
+def log_dicts(text: str, tag: str) -> list:
+    """The dicts a rank logged after ``tag`` (its per-phase stats)."""
+    import ast
+
+    return [ast.literal_eval(line.split(tag, 1)[1]) for line in text.splitlines()
+            if tag in line]
+
+
+def rank_launches(text: str) -> int:
+    return sum(int(line.split(_LAUNCH_LINE)[1]) for line in text.splitlines()
+               if _LAUNCH_LINE in line)
+
+
+def param_gap(a_dir: str, b_dir: str, it: int, lr: float) -> tuple:
+    """(max |dparam|, share of the parameters beyond 0.05 lr) between two
+    runs' checkpoint_iter{it} (the replicated layout)."""
+    a, b = (torch.load(os.path.join(d, "ckpt", f"checkpoint_iter{it}"), map_location="cpu",
+                       weights_only=True)["params"] for d in (a_dir, b_dir))
+    worst, far, total = 0.0, 0, 0
+    for k, v in a.items():
+        if "running" in k or "num_batches" in k:
+            continue
+        d = (v.float() - b[k].float()).abs()
+        worst, far, total = max(worst, float(d.max())), far + int((d > 0.05 * lr).sum()), \
+            total + d.numel()
+    return worst, far / total
+
+
+def predicted_rank_launches(stats: list, openings: int, eval_sims: int, searches: int) -> int:
+    """One rank's legal-mask launches by its loop counters: self-play once
+    at the reset, per opening round, per simulation and per env step; eval
+    once at the reset and, per ply, once per simulation of each of the
+    rank's ``searches`` half-searches and once per step."""
+    n = 0
+    for it in stats:
+        sp = it["self_play"]
+        n += 1 + openings + sp["simulations"] + sp["plies"]
+        if it["evaluation"]:
+            n += 1 + it["evaluation"]["plies"] * (searches * eval_sims + 1)
+    return n
+
+
+def mr_probe_inputs(net) -> dict:
+    """The probes' inputs: the seeded net at the shipped width, self-play
+    settings of the CLI runs' depth, the dyadic eval's."""
+    sd = {f"sd/{k}": v.cpu().numpy() for k, v in net.state_dict().items()}
+    sp = dict(num_simulations=MR_SIMS, max_game_length=MR_PLIES, random_opening_moves=4,
+              enable_resign=True, resign_threshold=-0.1, resign_check_steps=2,
+              temperature_threshold=15)
+    common = {"seed": np.array(SEED), "games": np.array(MR_GAMES),
+              "settings": np.array(json.dumps(sp))}
+    return {
+        "sp_dyadic": dict(common, evaluator=np.array("dyadic")),
+        "sp_net": dict(common, evaluator=np.array("net"), channels=np.array(CHANNELS),
+                       blocks=np.array(BLOCKS), **sd),
+        "eval_dyadic": {"settings": np.array(json.dumps(dict(num_simulations=MR_SIMS,
+                                                             max_game_length=MR_PLIES))),
+                        "games": np.array(8), "evaluator": np.array("dyadic")},
+        "net": dict(channels=np.array(CHANNELS), blocks=np.array(BLOCKS), **sd),
+    }
+
+
+def spread(got: dict, want: dict, lr: float) -> dict:
+    """How far one run of the learner probes lies from another: the
+    largest relative loss difference, max|dparam|, the share of the
+    parameters beyond 0.05 lr, and max|d running statistic|."""
+    d_loss = np.abs(got["losses"] - want["losses"]) / np.abs(want["losses"])
+    worst, far, total, stats = 0.0, 0, 0, 0.0
+    for name, w in want.items():
+        if not name.startswith("sd/") or "num_batches" in name:
+            continue
+        d = np.abs(got[name] - w)
+        if "running" in name:
+            stats = max(stats, float(d.max()))
+            continue
+        worst, far, total = max(worst, float(d.max())), far + int((d > 0.05 * lr).sum()), \
+            total + d.size
+    return {"loss": float(d_loss.max()), "dparam": worst, "far": far / total, "stats": stats}
+
+
+def moment_ratios(got: dict, want: dict) -> dict:
+    """Each tensor's largest |d| of Adam's first moment (0.1 x the reduced,
+    clipped gradient) over its tolerance GRAD_RTOL |m| + GRAD_ATOL max |m|,
+    the max over every tensor (a one-element bias's gradient may be a sum
+    that cancels)."""
+    moments = {k: w for k, w in want.items() if k.startswith("mu/")}
+    scale = max(float(np.abs(w).max()) for w in moments.values())
+    return {k[3:]: float((np.abs(got[k] - w) / (GRAD_RTOL * np.abs(w) + GRAD_ATOL * scale)).max())
+            for k, w in moments.items()}
+
+
+def check_step(got: dict, ref: dict, what: str) -> dict:
+    """One learner step against 1 rank's (``ref["step"]``): losses within
+    MR_LOSS_RTOL, at most a share STEP_FAR of the parameters beyond 0.05
+    lr and none beyond 2 lr, running statistics within atol 1e-6 + rtol
+    1e-5; Adam's first moment within MR_NOISE times the witness of
+    rounding alone, 1 rank on the batch's rows in reverse order (or within
+    its tolerance: at full width the card's float32 gradients of one batch
+    summed in another order differ by several times ``moment_ratios``'
+    tolerance, ReLU elements near 0 taking the other branch)."""
+    want = ref["step"]
+    s = spread(got, want, MR_LR)
+    ratios = moment_ratios(got, want)
+    witness = max(moment_ratios(ref["step_reversed"], want).values())
+    top = {k: round(v, 3) for k, v in sorted(ratios.items(), key=lambda kv: -kv[1])[:3]}
+    for name, w in want.items():
+        if "running" in name:
+            assert (np.abs(got[name] - w) <= 1e-6 + 1e-5 * np.abs(w)).all(), f"{what}: {name}"
+    bound = max(MR_NOISE * witness, 1.0)
+    log(f"  {what}: losses {got['losses'].tolist()} against 1 rank's {want['losses'].tolist()} "
+        f"(max rel {s['loss']:.3g}, rtol {MR_LOSS_RTOL:g}); Adam's first moment at "
+        f"{max(ratios.values()):.3g} of its tolerance (worst {top}; witness, rows reversed, "
+        f"{witness:.3g}; bound {bound:.3g}); max|dparam| {s['dparam']:.3g}, share beyond "
+        f"0.05 lr {s['far']:.3g} (at most {STEP_FAR:g})")
+    assert s["loss"] <= MR_LOSS_RTOL, (what, s)
+    assert max(ratios.values()) <= bound, (what, ratios, witness)
+    assert s["far"] <= STEP_FAR and s["dparam"] <= 2 * MR_LR, (what, s)
+    return s
+
+
+def multirank_base(dev) -> dict:
+    """What the multi-rank runs are held against: the probes' inputs and
+    their 1-rank outputs on the card."""
+    k = 128
+    net = init_net(torch.Generator().manual_seed(SEED), CHANNELS, BLOCKS)
+    inp = mr_probe_inputs(net)
+    ref = {name: PROBE.run(mode, inp[name], None, dev) for name, mode in
+           (("sp_dyadic", "selfplay"), ("eval_dyadic", "eval"), ("sp_net", "selfplay"))}
+    out = TS.SelfPlayOut(**{f: torch.from_numpy(ref["sp_dyadic"][f]) for f in SP_RECORDS})
+    buf = replay_of(out, k)
+    perm, wmask, _ = buf.epoch_plan(LEARNER_BATCH, 2, np.random.default_rng(SEED))
+    assert wmask[0].all() and len(perm) >= MR_STEPS, "the replay must fill the steps"
+    batch = dict(zip(("boards", "sides", "pi_actions", "pi_probs", "z"),
+                     (a[perm[0]] for a in buf.arrays())), w=wmask[0])
+    step_in = dict(inp["net"], **batch, lr=np.array(MR_LR), wd=np.array(1e-4))
+    steps_in = dict(inp["net"], **dict(zip(("boards", "sides", "pi_actions", "pi_probs", "z"),
+                                           buf.arrays())),
+                    perm=perm[:MR_STEPS], wmask=wmask[:MR_STEPS], lr=np.array(MR_LR),
+                    wd=np.array(1e-4))
+    ref["step"] = PROBE.run("step", step_in, None, dev)
+    ref["step_reversed"] = PROBE.run("step", dict(step_in, **{
+        k: np.ascontiguousarray(step_in[k][::-1]) for k in STEP_BATCH}), None, dev)
+    ref["steps"] = PROBE.run("steps", steps_in, None, dev)
+    ref["steps_reversed"] = PROBE.run("steps", dict(
+        steps_in, perm=np.ascontiguousarray(steps_in["perm"][:, ::-1]),
+        wmask=np.ascontiguousarray(steps_in["wmask"][:, ::-1])), None, dev)
+    feats = E.features(torch.from_numpy(batch["boards"]), torch.from_numpy(batch["sides"]))
+    fwd_in = dict(inp["net"], feats=feats.numpy())
+    ref["forward"] = PROBE.run("forward", fwd_in, None, dev)
+    return {"inp": inp, "ref": ref, "buf": buf, "step_in": step_in, "steps_in": steps_in,
+            "fwd_in": fwd_in, "batch": batch}
+
+
+def check_probes(base: dict, out: list, what: str) -> None:
+    """The data-parallel probe jobs of ``probe_jobs`` against 1 rank's:
+    the mock nets' self-play, ring and eval exactly; the real net's games
+    counted; one step (``check_step``); the 8-step plan, held as the step
+    is."""
+    ref, k = base["ref"], 128
+    for f in SP_RECORDS:
+        assert np.array_equal(out[0][f], ref["sp_dyadic"][f]), f"{what}: self-play {f} != 1 rank"
+    dp_buf = replay_of(TS.SelfPlayOut(**{f: torch.from_numpy(out[0][f]) for f in SP_RECORDS}), k)
+    for a, b in zip(dp_buf.arrays(), base["buf"].arrays()):
+        assert np.array_equal(a, b), f"{what}: replay ring != 1 rank"
+    for f in ("winners", "new_is_red", "plies_run"):
+        assert np.array_equal(out[1][f], ref["eval_dyadic"][f]), f"{what}: eval {f} != 1 rank"
+    log(f"  {what}, exact mock nets: self-play ({MR_GAMES} games, {MR_SIMS} sims, "
+        f"{int(ref['sp_dyadic']['rec'].sum())} records), its replay ring ({len(base['buf'])} rows) "
+        f"and the eval (8 games, winners {ref['eval_dyadic']['winners'].tolist()}, "
+        f"{int(ref['eval_dyadic']['plies_run'])} plies) equal 1 rank's")
+    got, want = out[2], ref["sp_net"]
+    same = [all(np.array_equal(got[f][:, g], want[f][:, g])
+                for f in ("boards", "pi_actions", "rec")) and got["winners"][g] == want["winners"][g]
+            for g in range(MR_GAMES)]
+    log(f"  {what}, real net ({CHANNELS} x {BLOCKS}, float32): {sum(same)} of {MR_GAMES} games "
+        f"identical to 1 rank's ({sum(same) / MR_GAMES:.4f})")
+    check_step(out[3], ref, f"{what}, learner step, batch {LEARNER_BATCH}")
+    # the trainer's learner path over MR_STEPS steps: rounding grows from
+    # step to step, so the spread is held against the witness's, 1 rank
+    # with each step's columns in reverse order (as ``check_step`` holds
+    # one step)
+    got = spread(out[4], ref["steps"], MR_LR)
+    witness = spread(ref["steps_reversed"], ref["steps"], MR_LR)
+    floor = {"loss": MR_LOSS_RTOL, "far": STEP_FAR, "stats": 1e-5}
+    bound = {k: max(MR_NOISE * witness[k], f) for k, f in floor.items()}
+    first = float(np.abs(out[4]["losses"][0] / ref["steps"]["losses"][0] - 1).max())
+    log(f"  {what}, {MR_STEPS} learner steps (train_epochs, batch {LEARNER_BATCH}, lr {MR_LR:g}) "
+        f"against 1 rank: {got}; witness, columns reversed, {witness}; bounds {bound}; first "
+        f"step's losses rel {first:.3g}")
+    assert out[4]["losses"].shape == ref["steps"]["losses"].shape == (MR_STEPS, 2)
+    assert first <= MR_LOSS_RTOL, (what, first)
+    assert all(got[k] <= bound[k] for k in bound), (what, got, bound)
+
+
+def probe_jobs(base: dict) -> list:
+    """The data-parallel probe jobs that ``check_probes`` reads, then the
+    step's profile and one self-play ply's."""
+    inp = base["inp"]
+    return [("selfplay", inp["sp_dyadic"]), ("eval", inp["eval_dyadic"]),
+            ("selfplay", inp["sp_net"]), ("step", base["step_in"]), ("steps", base["steps_in"]),
+            ("step_profile", dict(base["step_in"], steps=np.array(MR_PROFILED_STEPS))),
+            ("profile", inp["sp_net"])]
+
+
+def collectives_line(rows: np.ndarray) -> str:
+    return (f"ms a step {np.round(rows[:, 0], 3).tolist()}, in the gradient all-reduce "
+            f"{np.round(rows[:, 1], 3).tolist()}, in the other collectives "
+            f"{np.round(rows[:, 2], 3).tolist()}")
+
+
+def time_cudnn_modes(dev, base: dict, smi: str) -> dict:
+    """One learner step with cuDNN's default and its deterministic
+    algorithms, interleaved, at the shapes of this phase's CLI runs
+    (float32, TF32 off, batch 256) and of the bf16 training default
+    (batch 1024); CUDA events over 10 steps a reading."""
+    rows = [a for a in base["buf"].arrays()]
+    out = {}
+    for dtype, batch in ((torch.float32, LEARNER_BATCH), (torch.bfloat16, 1024)):
+        net = init_net(torch.Generator().manual_seed(SEED), CHANNELS, BLOCKS, dtype, dev).train()
+        opt = TL.make_optimizer(net.parameters(), MR_LR, 1e-4)
+        idx = np.arange(batch) % len(base["buf"])
+        args = [torch.from_numpy(np.ascontiguousarray(a[idx])).to(dev) for a in rows]
+        args.append(torch.ones(batch, device=dev))
+
+        def step(deterministic):
+            def f():
+                torch.backends.cudnn.deterministic = deterministic
+                TL.train_step(net, opt, *args)
+            return f
+
+        try:
+            ms = interleaved({"default": step(False), "deterministic": step(True)},
+                             lambda fn: cuda_ms(fn, 10))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        out[f"{str(dtype).split('.')[1]}_b{batch}"] = ms
+    log(f"  (e) learner ms a step, cuDNN default against deterministic (interleaved, 1 rank, "
+        f"{CHANNELS} x {BLOCKS}), {smi}: {json.dumps(out)}")
+    return out
+
+
+def phase_multirank(dev, smi: str, tmp: str) -> dict:
+    """(a) 2 ranks against 1 on the probes and through the CLI, (b) TP,
+    (c) the restarted pod, all on one card over gloo; (d) NCCL where there
+    are two cards; (e) cuDNN's deterministic algorithms timed."""
+    t_phase = time.perf_counter()
+    log(f"  cuts of the CLI runs (quick preset at {CHANNELS} x {BLOCKS}, float32): "
+        + ", ".join(f"{a} {v}" for a, v in MR_CUTS.items())
+        + "; the gated eval at the preset's 40 simulations (no flag sets it); the 1-rank "
+        "and TP runs stop after iteration 1")
+    base = multirank_base(dev)
+    ref = base["ref"]
+    one_card = {"CUDA_VISIBLE_DEVICES": visible_cards()[0]}
+
+    # (a) the probes: 2 rank processes on one card against 1 rank here
+    t0 = time.perf_counter()
+    dp_out, dp_logs = PROBE.launch(probe_jobs(base), MR_RANKS, device=dev.type,
+                                   timeout=MR_TIMEOUT, env=one_card)
+    log(f"  probes, {MR_RANKS} data-parallel ranks on one card: {time.perf_counter() - t0:.1f} s; "
+        + "; ".join(line for text in dp_logs for line in text.splitlines()
+                    if "backend" in line or "launches" in line))
+    assert all("backend gloo" in text for text in dp_logs), "2 ranks on one card must take gloo"
+    check_probes(base, dp_out, f"(a) {MR_RANKS} ranks")
+    one_prof = PROBE.run("step_profile", dict(base["step_in"], steps=np.array(MR_PROFILED_STEPS)),
+                         None, dev)["ranks"]
+    log(f"  (a) learner step under the profiler (batch {LEARNER_BATCH}, {MR_PROFILED_STEPS} steps), "
+        f"{smi}: 1 rank {collectives_line(one_prof)}; {MR_RANKS} ranks over gloo "
+        f"{collectives_line(dp_out[5]['ranks'])}")
+    prof = dp_out[6]["ranks"]   # per rank: busy s, wall s, kernels, simulations
+    idle = 1 - prof[:, 0].sum() / prof[:, 1].max()
+    log(f"  idle share of the card over one ply of {MR_RANKS}-rank self-play ({MR_GAMES} games x "
+        f"{MR_SIMS} sims, profiler on), {smi}: {idle:.4f} (busy {prof[:, 0].tolist()} s, "
+        f"wall {prof[:, 1].tolist()} s, kernels {prof[:, 2].tolist()})")
+
+    # the CLI: 1 rank (one iteration), then 2 ranks (two), each timed
+    # alone, both supervised (cuDNN's deterministic algorithms); then the
+    # restarted pod, one TP iteration and the TP probes together
+    runs = {n: os.path.join(tmp, "multirank", n) for n in ("one", "dp", "restart", "tp")}
+    t0 = time.perf_counter()
+    one_logs = wait_cli(start_cli(dev, runs["one"], 1, ["--iterations", "1", "--mesh-mode", "off",
+                                                        "--auto-restart", "1"], env=one_card),
+                        "1-rank CLI")
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp_logs = wait_cli(start_cli(dev, runs["dp"], MR_RANKS, ["--auto-restart", "1"], env=one_card),
+                       "2-rank CLI")
+    t_dp = time.perf_counter() - t0
+    assert all("backend gloo" in text for text in dp_logs), "2 ranks on one card must take gloo"
+    t0 = time.perf_counter()
+    faults = os.path.join(tmp, "multirank")
+    pods = [start_cli(dev, runs["restart"], MR_RANKS, ["--auto-restart", "1"], env=one_card,
+                      rank_env={i: {"XQAZ_FAULT_ITER": f"2:{faults}/fault_p{i}"}
+                                for i in range(MR_RANKS)}),
+            start_cli(dev, runs["tp"], MR_RANKS, ["--model-parallel", "2", "--iterations", "1"],
+                      env=one_card)]
+    tp_out = PROBE.launch([("forward", base["fwd_in"]), ("step", base["step_in"])], MR_RANKS,
+                          model_parallel=2, device=dev.type, timeout=MR_TIMEOUT, env=one_card)[0]
+    restart_logs, tp_logs = (wait_cli(p, w) for p, w in zip(pods, ("restart", "TP CLI")))
+    t_pair = time.perf_counter() - t0
+
+    # (b) tensor parallel over 2 ranks on the card
+    dl = float(np.abs(tp_out[0]["logits"] - ref["forward"]["logits"]).max())
+    dv = float(np.abs(tp_out[0]["value"] - ref["forward"]["value"]).max())
+    log(f"  (b) TP forward ({MR_RANKS} ranks, --model-parallel 2, B = {LEARNER_BATCH}) against the "
+        f"replicated forward: max|dlogits| {dl:.3g} (atol 1e-4), max|dvalue| {dv:.3g} (atol 1e-5)")
+    assert dl <= 1e-4 and dv <= 1e-5, (dl, dv)
+    check_step(tp_out[1], base["ref"], "(b) TP learner step")
+
+    one, dp = cli_stats(runs["one"]), cli_stats(runs["dp"])
+    lr = float(one[0]["training"]["learning_rate"])
+    for it in range(len(one)):
+        worst, far = param_gap(runs["one"], runs["dp"], it + 1, lr)
+        a, b = one[it]["training"], dp[it]["training"]
+        log(f"  (a) CLI iteration {it + 1}: self-play {'equal' if without_times(one[it]['self_play']) == without_times(dp[it]['self_play']) else 'different'}; "
+            f"losses 1 rank {a['policy_loss']:.6f}/{a['value_loss']:.6f}, 2 ranks "
+            f"{b['policy_loss']:.6f}/{b['value_loss']:.6f} (rel {abs(b['total_loss'] / a['total_loss'] - 1):.3g}); "
+            f"max|dparam| {worst:.3g}, share beyond 0.05 lr ({lr:g}) {far:.3g}; eval 1 rank "
+            f"{without_times(one[it]['evaluation'])}, 2 ranks {without_times(dp[it]['evaluation'])}")
+    assert [s["iteration"] for s in dp] == [1, 2] and dp[1]["evaluation"], "2-rank CLI stats"
+    restart = cli_stats(runs["restart"])
+    assert all(os.path.exists(f"{faults}/fault_p{i}") for i in range(MR_RANKS)), "no fault fired"
+    assert any("[supervisor] training exited" in text for text in restart_logs)
+    assert without_times(restart) == without_times(dp), \
+        f"(c) restarted pod != uninterrupted pod:\n{restart}\n{dp}"
+    log(f"  (c) the {MR_RANKS}-rank pod with a fault at iteration 2 on every rank, under "
+        f"--auto-restart 1, equals the uninterrupted (supervised) pod's training_stats.json "
+        f"(times left out)")
+    tp = cli_stats(runs["tp"])
+    worst, far = param_gap(runs["one"], runs["tp"], 1, lr)
+    log(f"  (b) TP CLI iteration 1: self-play {'equal' if without_times(tp[0]['self_play']) == without_times(one[0]['self_play']) else 'different'}; "
+        f"losses {tp[0]['training']['policy_loss']:.6f}/{tp[0]['training']['value_loss']:.6f}; "
+        f"max|dparam| against 1 rank {worst:.3g}, share beyond 0.05 lr {far:.3g}")
+
+    # (d) NCCL, one card a rank, where there are two
+    if torch.cuda.device_count() >= MR_RANKS:
+        multirank_nccl(dev, smi, tmp, base, runs["one"])
+    else:
+        log(f"  (d) NCCL unmeasured: {torch.cuda.device_count()} card (NCCL refuses two ranks "
+            f"on one)")
+    cudnn = time_cudnn_modes(dev, base, smi)
+
+    # launches: every rank of the 2-rank run, against its loop counters
+    launches = [rank_launches(text) for text in dp_logs]
+    want = [predicted_rank_launches(dp, 4, 40, 1)] * MR_RANKS
+    assert launches == want, f"2-rank CLI launches {launches} != predicted {want}"
+    assert rank_launches(one_logs[0]) == predicted_rank_launches(one, 4, 40, 2)
+
+    # rates, from each rank's own stats
+    sp_one = log_dicts(one_logs[0], "self-play: ")
+    sp_dp = [log_dicts(text, "self-play: ") for text in dp_logs]
+    tr_one = [s for s in log_dicts(one_logs[0], "train: ") if s]
+    tr_dp = [s for s in log_dicts(dp_logs[0], "train: ") if s]
+    local = MR_GAMES // MR_RANKS
+    rates = {
+        "selfplay_sims_per_s_1rank": MR_GAMES * sum(s["simulations"] for s in sp_one)
+        / sum(s["time"] for s in sp_one),
+        "selfplay_sims_per_s_per_rank": [local * sum(s["simulations"] for s in r)
+                                         / sum(s["time"] for s in r) for r in sp_dp],
+        "learner_ms_per_step_1rank": 1e3 * sum(s["time"] for s in tr_one)
+        / sum(s["batches"] for s in tr_one),
+        "learner_ms_per_step_2ranks": 1e3 * sum(s["time"] for s in tr_dp)
+        / sum(s["batches"] for s in tr_dp),
+        "profiled_step_ms_1rank": float(one_prof[0, 0]),
+        "profiled_step_ms_2ranks": dp_out[5]["ranks"][:, 0].tolist(),
+        "collective_ms_per_step_2ranks": {"gradient": dp_out[5]["ranks"][:, 1].tolist(),
+                                          "other": dp_out[5]["ranks"][:, 2].tolist()},
+        "idle_share_2rank_ply": float(idle),
+        "cudnn_ms": cudnn,
+        "cli_s": {"one": t_one, "dp": t_dp, "restart+tp+tp_probes": t_pair},
+    }
+    rates["selfplay_sims_per_s_2ranks_total"] = MR_GAMES * sum(
+        s["simulations"] for s in sp_dp[0]) / max(sum(s["time"] for s in r) for r in sp_dp)
+    log(f"  multi-rank rates on {smi}: " + json.dumps(rates))
+    log(f"  legal_mask launches: 2-rank CLI {launches} (== the loop counters), 1 rank "
+        f"{rank_launches(one_logs[0])}; phase wall {time.perf_counter() - t_phase:.1f} s, {smi}")
+    return {"launches": sum(launches), "rates": rates}
+
+
+def multirank_nccl(dev, smi: str, tmp: str, base: dict, one_dir: str) -> None:
+    """(d) (a) over NCCL, one card a rank: the probes against 1 rank's as
+    in (a), then the CLI as a user with several cards runs it (one
+    process, ``--mesh-mode auto``, which starts a rank a card) against the
+    1-rank CLI run in ``one_dir``."""
+    t0 = time.perf_counter()
+    cards = {"CUDA_VISIBLE_DEVICES": ",".join(visible_cards()[:MR_RANKS])}
+    out, logs = PROBE.launch(probe_jobs(base), MR_RANKS, device=dev.type, timeout=MR_TIMEOUT,
+                             env=cards)
+    assert all("backend nccl" in text for text in logs), "a card a rank must take NCCL"
+    check_probes(base, out, f"(d) {MR_RANKS} ranks over NCCL")
+    rows = out[5]["ranks"]
+    log(f"  (d) learner step under the profiler over NCCL, {smi}: ms a step "
+        f"{np.round(rows[:, 0], 3).tolist()}, in NCCL's kernels on the card (the gradient and "
+        f"the rest together) {np.round(rows[:, 2], 3).tolist()}")
+    run = os.path.join(tmp, "multirank", "nccl")
+    text = wait_cli(start_cli(dev, run, 1, ["--iterations", "1", "--mesh-mode", "auto"],
+                             env=cards), "NCCL CLI")[0]
+    assert text.count("backend nccl") == MR_RANKS, "the CLI must start a rank a card over NCCL"
+    nccl, one = cli_stats(run), cli_stats(one_dir)
+    worst, far = param_gap(one_dir, run, 1, float(one[0]["training"]["learning_rate"]))
+    assert rank_launches(text) == MR_RANKS * predicted_rank_launches(nccl, 4, 40, 1)
+    log(f"  (d) CLI, one process on {MR_RANKS} cards (a rank a card, NCCL), iteration 1: "
+        f"self-play {'equal' if without_times(nccl[0]['self_play']) == without_times(one[0]['self_play']) else 'different'} "
+        f"to 1 rank's; losses {nccl[0]['training']['policy_loss']:.6f}/"
+        f"{nccl[0]['training']['value_loss']:.6f} against 1 rank's "
+        f"{one[0]['training']['policy_loss']:.6f}/{one[0]['training']['value_loss']:.6f}; "
+        f"max|dparam| {worst:.3g}, share beyond 0.05 lr {far:.3g}; launches "
+        f"{rank_launches(text)}; {time.perf_counter() - t0:.1f} s, {smi}")
+
+
+def phase_nccl_only(dev, smi: str, tmp: str) -> None:
+    """(d) alone, with what it is held against: the 1-rank probes and the
+    1-rank CLI run."""
+    assert torch.cuda.device_count() >= MR_RANKS, "NCCL needs a card a rank"
+    base = multirank_base(dev)
+    one = os.path.join(tmp, "multirank", "one")
+    wait_cli(start_cli(dev, one, 1, ["--iterations", "1", "--mesh-mode", "off"],
+                       env={"CUDA_VISIBLE_DEVICES": visible_cards()[0]}), "1-rank CLI")
+    multirank_nccl(dev, smi, tmp, base, one)
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1529,6 +2047,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dense-baseline", metavar="PATH",
                         help="source of the earlier dense kernel, timed beside this one")
+    parser.add_argument("--only", choices=["multirank", "nccl"],
+                        help="run phases 1-2 and only phase 10 (multirank) or only its "
+                        "NCCL part (d) with the 1-rank runs it is held against; prints no "
+                        "kernels line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -1549,6 +2071,16 @@ def main(argv=None) -> int:
 
     device = timed("1 device", phase_device)
     timed("2 build", phase_build, args.dense_baseline)
+    if args.only:
+        with tempfile.TemporaryDirectory() as tmp:
+            if args.only == "multirank":
+                timed("10 multirank", phase_multirank, dev, device["smi"], tmp)
+            else:
+                timed("10 (d) nccl", phase_nccl_only, dev, device["smi"], tmp)
+        log(device["smi"])
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))
+        return 0
     dense = DenseBaseline(args.dense_baseline, dev) if args.dense_baseline else None
     playouts = random_boards(dev, BOARDS, PLIES, SEED)
     err = timed("3 kernel", phase_kernel, dev, playouts)
@@ -1565,6 +2097,7 @@ def main(argv=None) -> int:
         search_s = timed("8 profile", phase_profiles, dev, net)
         tools = timed("9 tools", phase_tools, dev, playouts, net, os.path.join(tmp, name),
                       train["checkpoint"], tmp)
+        multirank = timed("10 multirank", phase_multirank, dev, device["smi"], tmp)
     log(f"AI move latency at {SIMS} sims: "
         f"{[round(x, 4) for x in serve['ai_move_s']]} s; 4 concurrent session moves: "
         f"{[round(x, 4) for x in serve['session_move_s']]} s; Gumbel AI move latency "
@@ -1585,7 +2118,8 @@ def main(argv=None) -> int:
                                  "gumbel_serve": gumbel["serve"]["launches"][k["name"]],
                                  "gumbel_train": gumbel["train"]["launches"][k["name"]],
                                  "arena": gumbel["arena"]["launches"],
-                                 "benchmark": tools["benchmark_launches"]},
+                                 "benchmark": tools["benchmark_launches"],
+                                 "multirank": multirank["launches"]},
             "max_abs_err": err, "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": k["library_ms"],

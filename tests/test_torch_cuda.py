@@ -9,6 +9,8 @@ This file imports no JAX, so it also runs where only the port is installed
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -174,3 +176,51 @@ def test_int8_on_card_matches_cpu(cuda, batch):
     lg, vg = Q.int8_forward(qg, feats)
     torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
     torch.testing.assert_close(vg.cpu(), vc, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("model_parallel", [1, 2])
+def test_two_rank_step_on_card_matches_cpu(cuda, model_parallel):
+    """Two ranks on one card (gloo, by the backend rule; pinned to one card
+    where there are several), data-parallel or
+    ``--model-parallel 2``: the global batch-norm Function and, under TP,
+    the sharded loss and its all-reduces run on CUDA tensors. One step
+    against the same 2-rank step on the CPU: losses within rtol 1e-5;
+    Adam's first moment (0.1 x the reduced, clipped gradient) within 1e-4
+    of each element plus 1e-4 of the largest, the measure that
+    ``chip_smoke.py`` holds the card's float32 gradients to; parameters
+    within 2 lr with at most 0.1% beyond 0.05 lr (Adam's first step moves
+    each by about lr whatever its gradient); running statistics within
+    atol 1e-6 + rtol 1e-5."""
+    from xiangqi_alphazero_torch.models import init_net
+    from xiangqi_alphazero_torch.parallel import probe
+
+    net = init_net(torch.Generator().manual_seed(3), 16, 2)
+    rng = np.random.default_rng(3)
+    b = 32
+    probs = rng.random((b, 8)).astype(np.float32)
+    inputs = {"channels": np.array(16), "blocks": np.array(2),
+              **{f"sd/{k}": v.numpy() for k, v in net.state_dict().items()},
+              "boards": _boards(torch.device("cpu"), games=b, plies=20)[0][-b:].numpy(),
+              "sides": np.where(rng.random(b) < 0.5, 1, -1).astype(np.int8),
+              "pi_actions": rng.integers(0, 8100, (b, 8), dtype=np.int32),
+              "pi_probs": probs / probs.sum(1, keepdims=True),
+              "z": rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), b),
+              "w": np.ones(b, np.float32), "lr": np.array(1e-3), "wd": np.array(1e-4)}
+    one_card = {"CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]}
+    (card,), logs = probe.launch([("step", inputs)], 2, model_parallel, device="cuda",
+                                 env=one_card)
+    assert all("backend gloo" in log for log in logs), logs
+    (cpu,), _ = probe.launch([("step", inputs)], 2, model_parallel, device="cpu")
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=1e-5)
+    far = total = 0
+    scale = max(np.abs(w).max() for k, w in cpu.items() if k.startswith("mu/"))
+    for k, w in cpu.items():
+        if k.startswith("mu/"):
+            np.testing.assert_allclose(card[k], w, rtol=1e-4, atol=1e-4 * scale, err_msg=k)
+        elif "running" in k:
+            np.testing.assert_allclose(card[k], w, atol=1e-6, rtol=1e-5, err_msg=k)
+        elif k.startswith("sd/") and "num_batches" not in k:
+            d = np.abs(card[k] - w)
+            assert d.max() <= 2e-3, k
+            far, total = far + int((d > 5e-5).sum()), total + d.size
+    assert far <= 1e-3 * total, (far, total)

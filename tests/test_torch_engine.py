@@ -347,3 +347,60 @@ def test_kernel_wrapper_dispatch_on_cpu(boards):
     assert torch.equal(TE.legal_mask_batch(b, s), TE.legal_mask(b, s))
     with pytest.raises(ValueError, match="CUDA"):
         TL.legal_mask_cuda(b, s)
+
+
+def test_long_horizon_terminal_rules_match_jax():
+    """The quiet >= 120 draw (and a capture resetting the count), the
+    ply >= 200 material adjudication (red, black, draw), the 3-in-12
+    repetition draw and its window expiry, on the boards of
+    ``tests/test_terminal_rules.py``: one batch stepped by the port and by
+    JAX ``v_step``, every field equal after every ply. Lanes past their
+    script play their first legal move."""
+    def sq(r, c):
+        return r * 9 + c
+
+    def act(f, t):
+        return f * 90 + t
+
+    def kings(*extra):
+        b = np.zeros(90, np.int8)
+        b[sq(0, 3)], b[sq(9, 5)] = 1, -1
+        for s, piece in extra:
+            b[s] = piece
+        return b
+
+    init = np.asarray(JE.reset_jit().board)
+    shuttle = [act(sq(0, 0), sq(1, 0)), act(sq(9, 0), sq(8, 0)),
+               act(sq(1, 0), sq(0, 0)), act(sq(8, 0), sq(9, 0))]
+    other = [act(sq(0, 8), sq(1, 8)), act(sq(9, 8), sq(8, 8)), act(sq(1, 8), sq(2, 8)),
+             act(sq(8, 8), sq(7, 8)), act(sq(2, 8), sq(1, 8)), act(sq(7, 8), sq(8, 8))]
+    lanes = [  # (board, ply, quiet, script)
+        (kings((sq(4, 0), 5), (sq(5, 8), -5)), 150, 119, [act(sq(4, 0), sq(4, 1))]),
+        (kings((sq(4, 0), 5), (sq(4, 8), -5)), 150, 119, [act(sq(4, 0), sq(4, 8))]),
+        (kings((sq(4, 0), 5)), 199, 10, []),
+        (kings((sq(5, 8), -5)), 199, 10, []),
+        (kings(), 199, 10, []),
+        (init, 0, 0, shuttle * 3),
+        (init, 0, 0, shuttle * 2 + other),
+    ]
+    js = jax.tree.map(lambda *x: jnp.stack(x),
+                      *[JE.state_from_numpy(b, 1, p, q) for b, p, q, _ in lanes])
+    ts = TE.cat_states([TE.state_from_numpy(b, 1, p, q) for b, p, q, _ in lanes])
+    step = jax.jit(JE.v_step)
+    done_at = []
+    for ply in range(15):
+        for f in _ENV_FIELDS:
+            assert np.array_equal(getattr(ts, f).numpy(), np.asarray(getattr(js, f))), \
+                f"{f} differs at ply {ply}"
+        done_at.append(ts.done.numpy().copy())
+        legal = np.asarray(js.legal)
+        acts = [script[ply] if ply < len(script) else
+                (int(np.flatnonzero(legal[i])[0]) if legal[i].any() else 0)
+                for i, (_, _, _, script) in enumerate(lanes)]
+        js = step(js, jnp.asarray(acts, jnp.int32))
+        ts = TE.step_batch(ts, torch.tensor(acts))
+    done_at = np.array(done_at)   # [ply, lane]: done before that ply's move
+    assert done_at[1].tolist() == [True, False, True, True, True, False, False]
+    assert ts.winner[[0, 2, 3, 4]].tolist() == [0, 1, -1, 0]   # frozen since ply 1
+    assert done_at[:, 5].tolist() == [False] * 12 + [True] * 3   # the draw at ply 12
+    assert not done_at[:, 6].any()                              # the window expired

@@ -48,6 +48,10 @@ def test_importing_every_module_loads_no_jax():
               "xiangqi_alphazero_torch.models.quant", "xiangqi_alphazero_torch.utils.profiling",
               "xiangqi_alphazero_torch.utils.trace_tools", "xiangqi_alphazero_torch.utils.benchmark",
               "xiangqi_alphazero_torch.engine.native"]
+    # the multi-device layer, the probes and the CLI with its supervisor
+    names += ["xiangqi_alphazero_torch.distributed", "xiangqi_alphazero_torch.parallel",
+              "xiangqi_alphazero_torch.parallel.sharding", "xiangqi_alphazero_torch.parallel.probe",
+              "xiangqi_alphazero_torch.train.__main__"]
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -131,3 +135,22 @@ def test_export_and_benchmark_raise_without_cuda(monkeypatch, tmp_path, capsys):
         benchmark.main(["--batch", "2", "--sims", "2", "--channels", "8", "--blocks", "1"])
     assert cli.main(["export", "--checkpoint", src, "--output", out, "--device", "cpu"]) == 0
     assert "verified" in capsys.readouterr().out
+
+
+def test_multirank_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """A rank joins on CUDA unless given ``device="cpu"``: the training
+    CLI's ranks and the probes' raise without a card, before they wait for
+    any peer."""
+    from xiangqi_alphazero_torch import distributed
+    from xiangqi_alphazero_torch.parallel import probe
+    from xiangqi_alphazero_torch.train.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.distributed_init("127.0.0.1:1", 2, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--mode", "quick", "--checkpoint-dir", str(tmp_path), *args])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        probe.main([".", *args])
+    assert distributed.context() is None

@@ -18,9 +18,9 @@ and torch):
   head's rows of untargeted actions, a difference in its low bits moves
   the parameter by a visible fraction of lr. A step of the wrong sign or
   size on a real gradient breaks the second bound.
-- ``clip_grad_norm_`` divides by the norm plus 1e-6 where optax divides by
-  the norm: a relative change of at most 1e-6 on clipped gradients, far
-  below these tolerances.
+- the clip divides by the global norm, as optax's does, and sums the
+  squares pairwise (torch's float32 ``vector_norm`` on the CPU reads the
+  23M-element policy head's norm ~1e-3 low).
 """
 
 import dataclasses
@@ -88,23 +88,22 @@ def test_cli_overrides_and_unported_flags_raise():
     want, _ = JC.config_from_args(JC.build_argparser().parse_args(argv + flags))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (got.search_algo, got.max_considered) == ("gumbel", 4)
-    for flags, item in [(["--auto-restart", "2"], "A10"),
-                        (["--model-parallel", "2"], "A7"), (["--num-processes", "2"], "A7"),
-                        (["--coordinator", "localhost:1234"], "A7"),
-                        (["--process-id", "1"], "A7")]:
-        with pytest.raises(NotImplementedError, match=item):
-            TC.config_from_args(TC.build_argparser().parse_args(flags))
+    # the multi-device and supervisor flags set the JAX CLI's fields
+    flags = ["--auto-restart", "2", "--model-parallel", "2", "--num-processes", "2",
+             "--coordinator", "localhost:1234", "--process-id", "1", "--mesh-mode", "off"]
+    got, _ = TC.config_from_args(TC.build_argparser().parse_args(argv + flags))
+    want, _ = JC.config_from_args(JC.build_argparser().parse_args(argv + flags))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.model_parallel, got.num_processes, got.coordinator_address,
+            got.process_id) == (2, 2, "localhost:1234", 1)
+    # the one option without a counterpart still raises
     with pytest.raises(SystemExit):   # no counterpart: the flag is not offered
         TC.build_argparser().parse_args(["--train-segment", "4"])
     cfg = TC.quick_config()
     cfg.train_segment_batches = 4
     with pytest.raises(NotImplementedError, match="TPU program"):
         TC.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="A7"):
-        TC.check_supported(TC.quick_config(), num_devices=4)
-    cfg = TC.quick_config()
-    cfg.mesh_mode = "off"
-    TC.check_supported(cfg, num_devices=4)
+    TC.check_supported(TC.quick_config())
 
 
 # ------------------------------------------------------------ replay
@@ -438,6 +437,30 @@ def test_training_checkpoint_serves_as_its_best_model(two_iterations, tmp_path):
     assert got["config"] == want["config"]
     for k, v in want["model_state_dict"].items():
         assert torch.equal(got["model_state_dict"][k], v), k
+
+
+def test_find_models_lists_training_checkpoints_and_api_serves_one(two_iterations):
+    """``find_models`` lists a training directory's ``best_model.pt`` and
+    each ``checkpoint_iter{N}`` (not their ``.replay.npz`` rings), as the
+    JAX ``find_models`` lists ``best_model`` and ``checkpoint_iter*``; the
+    API loads a checkpoint by its name and answers a move with it."""
+    from xiangqi_alphazero_torch.engine.oracle import Position
+    from xiangqi_alphazero_torch.serve import api as TA
+    from xiangqi_alphazero_torch.serve.predictor import find_models
+
+    _, d = two_iterations
+    found = find_models([str(d)])
+    assert [(m["name"], m["format"]) for m in found] == [
+        ("best_model.pt", "torch"), ("checkpoint_iter1", "checkpoint"),
+        ("checkpoint_iter2", "checkpoint")]
+    svc = TA.GameService(model_dirs=[str(d)], device="cpu")
+    assert [m["name"] for m in svc.models()[1]["models"]] == [m["name"] for m in found]
+    status, out = svc.load_model({"model_name": "checkpoint_iter2", "num_simulations": 10})
+    assert status == 200, out
+    assert svc.models()[1]["current"] == "checkpoint_iter2"
+    status, out = svc.new_game({"human_side": "black", "num_simulations": 10})
+    assert status == 200, out
+    assert out["ai_move"]["action"] in Position().legal_actions()
 
 
 def test_gumbel_trainer_learns_and_resumes_bit_identically(tmp_path):

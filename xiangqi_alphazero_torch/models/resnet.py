@@ -43,11 +43,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     is normalized by its mean and biased variance, and the running variance
     moves toward that same biased variance (torch's layer moves it toward
     the unbiased one, n / (n - 1) times larger). Evaluation mode is torch's
-    own. The state dict keys are ``nn.BatchNorm2d``'s."""
+    own. The state dict keys are ``nn.BatchNorm2d``'s.
+
+    ``process_group`` (None: the local batch) makes a training batch the
+    global batch of that group's ranks: the data-parallel learner sets it
+    (``parallel/sharding.py::set_bn_group``), as JAX's sharded step
+    normalises by the whole sharded batch."""
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            from ..parallel.sharding import global_batch_norm
+
+            return global_batch_norm(self, x)
         # torch moves a running variance to (1 - m) old + m u, u the unbiased
         # variance; weighing that 1 - 1/n against (1 - m) old gives
         # (1 - m) old + m u (n - 1) / n, the biased variance's update. The

@@ -172,9 +172,11 @@ def run_gumbel_mcts(
     cfg: GumbelConfig,
     logits_eval: bool = False,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[M.Shard] = None,
 ) -> GumbelResult:
     """Gumbel root search over a batch of root states. ``eval_fn`` is as
-    for ``run_mcts``; the root draws come from the CPU ``generator``."""
+    for ``run_mcts``; the root draws come from the CPU ``generator``
+    (``shard`` as for ``run_mcts``)."""
     batch = roots.board.shape[0]
     dev = roots.board.device
     k = cfg.max_children
@@ -195,7 +197,7 @@ def run_gumbel_mcts(
     slot_a, valid, p_raw = slot_priors(roots.board, roots.side, roots.legal, probs)
     p_slot = M._mask_normalize(p_raw, valid)
     logits = _log_priors(p_slot, valid)
-    g = _root_gumbel(batch, k, generator, dev)
+    g = M.own_rows(_root_gumbel(M.global_shape((batch,), shard)[0], k, generator, dev), shard)
     base = torch.where(valid, g + logits, -torch.inf)           # g + logits
     cand_base, cand_slot = _top(base, m)                        # [B, m], -inf pads
     # games with fewer legal moves than m keep -inf pad columns; the

@@ -33,7 +33,8 @@ Differences from the JAX package, none of which changes a result:
 - Random draws come from an explicit ``torch.Generator`` and are made on
   its device (``_gamma``, ``_gumbel``): with a CPU generator the card and
   the CPU search alike. JAX and torch streams differ, so tests compare with
-  the noise off or with injected draws.
+  the noise off or with injected draws. A batch that is one rank's block
+  of a global batch (``Shard``) draws the global block and keeps its rows.
 """
 
 from __future__ import annotations
@@ -386,6 +387,30 @@ def _expand_and_backup(
     return leaf_env, value
 
 
+class Shard(NamedTuple):
+    """A batch that is rows [offset, offset + size) of a global batch of
+    ``total`` games, split over ranks (``parallel/sharding.py``). Every
+    random draw is made at the global batch's shape and each shard keeps
+    its own rows, so a game's draws do not depend on the split. ``any``
+    reduces a flag over all shards (the loops run until every shard's
+    games have ended, so the generators stay in step)."""
+
+    offset: int
+    size: int
+    total: int
+    any: Callable[[bool], bool] = bool
+
+
+def global_shape(shape, shard: Optional[Shard]) -> tuple:
+    """The shape to draw for a batch of ``shape`` (dim 0 the batch)."""
+    return tuple(shape) if shard is None else (shard.total, *tuple(shape)[1:])
+
+
+def own_rows(x: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """This shard's rows of a draw made at ``global_shape``."""
+    return x if shard is None else x[shard.offset: shard.offset + shard.size]
+
+
 def _draw_device(generator: Optional[torch.Generator], device) -> torch.device:
     """Draws are made where ``generator`` lives (a CPU generator gives the
     card and the CPU the same draws), else on ``device``."""
@@ -414,6 +439,7 @@ def run_mcts(
     sim_budget: Optional[torch.Tensor] = None,
     noise_mask: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[Shard] = None,
 ) -> SearchResult:
     """Full search over a batch of root states.
 
@@ -423,7 +449,8 @@ def run_mcts(
     runs only its first sim_budget[b] simulations, so its result equals a
     search with exactly that budget. ``noise_mask`` (bool[B]): with
     ``add_noise``, apply the Dirichlet root noise only to these games,
-    drawn from ``generator``."""
+    drawn from ``generator``. ``shard``: the batch is that block of a
+    global batch, whose draws it takes its rows of."""
     batch = roots.board.shape[0]
     dev = roots.board.device
     k = cfg.max_children
@@ -435,7 +462,8 @@ def run_mcts(
     slot_a, valid, p_raw = slot_priors(roots.board, roots.side, roots.legal, probs)
     p_slot = _mask_normalize(p_raw, valid)
     if add_noise:
-        g = torch.where(valid, _gamma(cfg.dirichlet_alpha, (batch, k), generator, dev), 0.0)
+        gam = _gamma(cfg.dirichlet_alpha, global_shape((batch, k), shard), generator, dev)
+        g = torch.where(valid, own_rows(gam, shard), 0.0)
         noise = g / g.sum(dim=-1, keepdim=True).clamp(min=1e-30)
         p_noised = torch.where(
             valid, (1.0 - cfg.noise_frac) * p_slot + cfg.noise_frac * noise, 0.0
@@ -515,10 +543,12 @@ def action_probs_dense(result: SearchResult, temperature) -> torch.Tensor:
 
 
 def sample_actions(
-    result: SearchResult, temperature, generator: Optional[torch.Generator] = None
+    result: SearchResult, temperature, generator: Optional[torch.Generator] = None,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """Per-game action: argmax of visits at temp==0 (greedy_slots), else a
-    sample from visits**(1/temp) (Gumbel-max with draws from ``generator``)."""
+    sample from visits**(1/temp) (Gumbel-max with draws from ``generator``;
+    ``shard`` as for ``run_mcts``)."""
     counts = result.visits.float()
     t = _temperature(temperature, counts)
     t_safe = torch.where(t > 0.0, t, 1.0)
@@ -527,6 +557,7 @@ def sample_actions(
         torch.log(counts.clamp(min=1e-30)) / t_safe[:, None],
         -torch.inf,
     )
-    gumbel = _gumbel(counts.shape, generator, counts.device)
+    gumbel = own_rows(_gumbel(global_shape(counts.shape, shard), generator, counts.device),
+                      shard)
     slot = torch.where(t == 0.0, greedy_slots(result), (logw + gumbel).argmax(dim=-1))
     return result.actions.gather(1, slot[:, None])[:, 0]

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -81,15 +82,23 @@ def format_move(action: int, pos: Position) -> str:
 
 
 def find_models(search_dirs: List[str]) -> List[Dict]:
-    """Discover loadable ``.pt`` models (reference: demo/app.py:50-74)."""
+    """Discover loadable models (reference: demo/app.py:50-74): ``.pt``
+    files and the trainer's ``checkpoint_iter{N}`` files (which
+    ``load_serving_net`` serves; their ``.replay.npz`` rings are not
+    models). Directories, the JAX package's orbax bundles among them, are
+    not listed: the port cannot load them."""
     out = []
     for d in search_dirs:
         if not os.path.isdir(d):
             continue
         for name in sorted(os.listdir(d)):
+            path = os.path.join(d, name)
+            if not os.path.isfile(path):
+                continue
             if name.endswith(".pt"):
-                out.append({"name": name, "path": os.path.join(d, name),
-                            "format": "torch"})
+                out.append({"name": name, "path": path, "format": "torch"})
+            elif re.fullmatch(r"checkpoint_iter\d+", name):
+                out.append({"name": name, "path": path, "format": "checkpoint"})
     return out
 
 

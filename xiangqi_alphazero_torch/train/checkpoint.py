@@ -36,9 +36,18 @@ def _to_cpu(tree):
     return tree
 
 
+def checkpoint_path(ckpt_dir: str, iteration: int) -> str:
+    return os.path.abspath(os.path.join(ckpt_dir, f"checkpoint_iter{iteration}"))
+
+
 def save_checkpoint(ckpt_dir: str, iteration: int, payload: Dict[str, Any]) -> str:
-    path = os.path.abspath(os.path.join(ckpt_dir, f"checkpoint_iter{iteration}"))
-    torch.save(_to_cpu(payload), path)
+    """Write the checkpoint under a temporary name and rename it, so that a
+    process killed while saving (the ``--auto-restart`` supervisor resumes
+    from the newest ``checkpoint_iter{N}``) leaves no partial file under
+    the checkpoint's name, as orbax renames a finished save."""
+    path = checkpoint_path(ckpt_dir, iteration)
+    torch.save(_to_cpu(payload), path + ".tmp")
+    os.replace(path + ".tmp", path)
     return path
 
 

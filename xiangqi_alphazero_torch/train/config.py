@@ -6,11 +6,10 @@ field, ``lr_at``, the presets quick/standard/full/tpu with their values
 ``config_from_args``. The CLI adds ``--device`` (default ``cuda``) and drops
 the JAX-only ``--platform``.
 
-Options whose feature is not ported raise ``NotImplementedError`` naming
-its ROADMAP item (``check_supported``), rather than being ignored.
 ``train_segment_batches`` stays a field, so that the presets equal the JAX
 ones, but has no flag: it bounded the length of one TPU program, and the
-port's learner steps from the host. A nonzero value raises.
+port's learner steps from the host. A nonzero value raises
+(``check_supported``), rather than being ignored.
 """
 
 from __future__ import annotations
@@ -18,9 +17,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Optional, Tuple
-
-_A7 = "ROADMAP A7 (multi-device training with torch.distributed)"
-_SUPERVISOR = "ROADMAP A10 (the --auto-restart supervisor and stall watchdog)"
 
 
 @dataclasses.dataclass
@@ -102,23 +98,23 @@ class TrainingConfig:
     #   deque; a cold-buffer resume measurably stalls continuation training
     #   — see models/README.md)
 
-    # execution (the JAX package's TPU knobs; see check_supported)
+    # execution
     dtype: str = "bfloat16"          # network compute dtype
     mesh_axis: str = "data"          # self-play + learner data-parallel axis
-    mesh_mode: str = "auto"          # "auto": shard over all global devices
-    #   (batch axes padded up to device-count divisibility); "off":
-    #   single-device jit
-    model_parallel: int = 1          # >1: 2-D ('data','model') mesh with the
+    mesh_mode: str = "auto"          # "auto": data-parallel over every rank
+    #   of the process group (batch axes padded up to the data axis); one
+    #   process on a host of several cards starts a rank per card (the
+    #   CLI); "off": one device
+    model_parallel: int = 1          # >1: a (data, model) grid with the
     #   head Dense layers (policy FC = ~80% of params) Megatron-sharded over
-    #   'model'; learner params + Adam moments live in that layout, actors
-    #   stay replicated. Works single- and multi-process (the 'data' axis
-    #   spans hosts; parallel/sharding.tp_place assembles the global arrays)
+    #   'model'; the learner's params + Adam moments live in that layout,
+    #   self-play and eval stay replicated (parallel/sharding.py)
     seed: int = 0
 
-    # multi-host (controller-less SPMD over DCN; every host runs this same
-    # CLI with its own --process-id — replaces the reference's process-pool
-    # + Unix-socket IPC layer, reference: training/inference_server.py)
-    coordinator_address: Optional[str] = None  # "host:port" of process 0
+    # multi-process (torch.distributed; every process runs this same CLI
+    # with its own --process-id — replaces the reference's process-pool +
+    # Unix-socket IPC layer, reference: training/inference_server.py)
+    coordinator_address: Optional[str] = None  # "host:port" of rank 0's store
     num_processes: int = 1
     process_id: int = 0
 
@@ -236,8 +232,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eval-interval", type=int)
     p.add_argument("--save-interval", type=int)
     p.add_argument("--auto-restart", type=int, default=0, metavar="N",
-                   help="the JAX package's restart supervisor; not ported "
-                        "(N > 0 raises)")
+                   help="supervise the run: relaunch it from its newest "
+                        "checkpoint up to N times after a failure or a stall "
+                        "(XQAZ_STALL_TIMEOUT_S, XQAZ_RESTART_MAX_WAIT_S)")
     p.add_argument("--checkpoint-replay", type=int, choices=[0, 1],
                    help="1 (default): save/restore the replay ring with "
                         "each checkpoint; 0: reference behavior (cold "
@@ -267,10 +264,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--model-parallel", type=int,
                    help="shard the head Dense layers over this many devices "
                         "(2-D data x model mesh)")
-    # multi-host bring-up (jax.distributed): run the same command on every
-    # host with its own --process-id
+    # multi-process bring-up (torch.distributed): run the same command in
+    # every process with its own --process-id
     p.add_argument("--coordinator", type=str,
-                   help="host:port of process 0's coordinator service")
+                   help="host:port of process 0's TCP store")
     p.add_argument("--num-processes", type=int)
     p.add_argument("--process-id", type=int)
     p.add_argument("--device", type=str, default="cuda",
@@ -280,8 +277,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> Tuple[TrainingConfig, Optional[str]]:
-    if args.auto_restart:
-        raise NotImplementedError(f"--auto-restart is not ported: {_SUPERVISOR}")
     cfg = PRESETS[args.mode]()
     overrides = {
         "iterations": "num_iterations",
@@ -322,21 +317,10 @@ def config_from_args(args: argparse.Namespace) -> Tuple[TrainingConfig, Optional
     return cfg, args.resume
 
 
-def check_supported(cfg: TrainingConfig, num_devices: int = 1) -> None:
-    """Raise ``NotImplementedError`` for an option whose feature the port
-    does not have yet, naming its ROADMAP item. ``num_devices`` is the
-    count of devices the run could shard over (``mesh_mode="auto"``
-    shards over all of them in the JAX package)."""
-    if cfg.mesh_mode == "auto" and num_devices > 1:
-        raise NotImplementedError(
-            f"mesh_mode='auto' over {num_devices} devices is not ported "
-            f"(pass --mesh-mode off to train on one): {_A7}")
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(f"model_parallel > 1 is not ported: {_A7}")
-    if cfg.coordinator_address is not None or cfg.num_processes > 1 or cfg.process_id:
-        raise NotImplementedError(f"multi-process training is not ported: {_A7}")
+def check_supported(cfg: TrainingConfig) -> None:
+    """Raise ``NotImplementedError`` for ``train_segment_batches``, which
+    has no counterpart in the port."""
     if cfg.train_segment_batches:
         raise NotImplementedError(
             "train_segment_batches bounds one TPU program's length; the port's "
             "learner steps from the host and has no such bound")
-

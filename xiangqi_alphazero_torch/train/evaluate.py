@@ -10,7 +10,9 @@ All eval games run in one lockstep batch, split into contiguous color halves
 (the candidate is red in the first half). Eval games start from the initial
 position with no openings, so every live game sits at the same ply: at each
 ply exactly one model is to move in each half, and each model searches only
-its half. The match is a host loop, one ply per iteration; the search and
+its half. Split over ranks (``parallel/sharding.py::make_sharded_eval``),
+a rank holds a block of the match, and its games take their colours from
+their global index. The match is a host loop, one ply per iteration; the search and
 the pick are deterministic, so no generator is needed. The per-half search
 and pick are hooks (``_make_body``), which the arena (``arena.py``) fills
 with other searches, budgets and temperature sampling.
@@ -56,6 +58,7 @@ def _make_body(
     select_old: Optional[Callable] = None,
     search_new: Optional[Callable] = None,
     search_old: Optional[Callable] = None,
+    shard: Optional[M.Shard] = None,
 ) -> Callable:
     """Per-ply body of the color-halved lockstep match: (states, t) ->
     states.
@@ -66,8 +69,9 @@ def _make_body(
     ``(eval_fn, states)`` to a result and default to the PUCT search at
     ``s.num_simulations`` with no noise. The arena overrides them to pit
     other algorithms and budgets (for example gumbel-32 against puct-200);
-    this is the one copy of the color-half logic every match shares."""
-    half = batch // 2
+    this is the one copy of the color-half logic every match shares. With
+    ``shard`` the batch is that block of the global match, and the halves
+    go by global game index."""
     mcfg = M.MCTSConfig(s.num_simulations, s.c_puct, max_children=s.max_children)
 
     def default_search(ev, st):
@@ -77,28 +81,30 @@ def _make_body(
     select_old = select_old or _greedy
     search_new = search_new or default_search
     search_old = search_old or default_search
+    offset, total = (0, batch) if shard is None else (shard.offset, shard.total)
+    new_is_red = torch.arange(offset, offset + batch) < total // 2
 
     def body(states: E.EnvState, t: int) -> E.EnvState:
-        # red moves at even plies; order the batch so the candidate's games
-        # come first, search each half with only its mover's model, then
-        # restore the order
-        new_first = t % 2 == 0   # the candidate is red in the first half
-        ordered = states if new_first else states.map(
-            lambda x: torch.cat([x[half:], x[:half]]))
-        top, bot = ordered.map(lambda x: x[:half]), ordered.map(lambda x: x[half:])
-        act = torch.cat([select_new(search_new(eval_new, top)),
-                         select_old(search_old(eval_old, bot))])
-        if not new_first:
-            act = torch.cat([act[half:], act[:half]])
+        # red moves at even plies: search the games where the candidate
+        # moves with its model, the others with the incumbent's (in the
+        # whole match, the candidate's half first)
+        new_moves = (new_is_red if t % 2 == 0 else ~new_is_red).to(states.board.device)
+        act = torch.empty(batch, dtype=torch.int32, device=states.board.device)
+        for moves, ev, search, select in ((new_moves, eval_new, search_new, select_new),
+                                          (~new_moves, eval_old, search_old, select_old)):
+            idx = torch.nonzero(moves)[:, 0]
+            if idx.numel():
+                act[idx] = select(search(ev, states.map(lambda x: x[idx]))).to(torch.int32)
         return E.step_batch(states, act)
 
     return body
 
 
-def _finalize(states: E.EnvState, batch: int, plies_run: int) -> EvalOut:
-    half = batch // 2
+def _finalize(states: E.EnvState, batch: int, plies_run: int,
+              shard: Optional[M.Shard] = None) -> EvalOut:
+    offset, total = (0, batch) if shard is None else (shard.offset, shard.total)
     dev = states.board.device
-    new_is_red = torch.arange(batch, device=dev) < half
+    new_is_red = torch.arange(offset, offset + batch, device=dev) < total // 2
     winners = torch.where(states.done, states.winner, 0).to(torch.int8)
     new_won = ((winners == 1) & new_is_red) | ((winners == -1) & ~new_is_red)
     old_won = ((winners == -1) & new_is_red) | ((winners == 1) & ~new_is_red)
@@ -125,18 +131,22 @@ def evaluate_pair(
     select_old: Optional[Callable] = None,
     search_new: Optional[Callable] = None,
     search_old: Optional[Callable] = None,
+    shard: Optional[M.Shard] = None,
 ) -> EvalOut:
     """Play the match of ``batch`` games (even: two color halves) on
     ``device``. ``eval_new``/``eval_old`` map features to (policy or
     logits, value), as for ``run_mcts``; the hooks are ``_make_body``'s.
-    Call under ``torch.inference_mode()`` with both nets in eval mode."""
-    if batch % 2:
+    With ``shard`` the games are that block of the global match, which
+    runs until no game of any shard is alive. Call under
+    ``torch.inference_mode()`` with both nets in eval mode."""
+    if (batch if shard is None else shard.total) % 2:
         raise ValueError("eval batch must be even (color halves)")
     body = _make_body(eval_new, eval_old, batch, s, logits_eval, select_new,
-                      select_old, search_new, search_old)
+                      select_old, search_new, search_old, shard)
     states = E.reset_batch(batch, device=torch.device(device))
+    any_alive = bool if shard is None else shard.any
     t = 0
-    while t < s.max_game_length and not bool(states.done.all()):
+    while t < s.max_game_length and any_alive(not bool(states.done.all())):
         states = body(states, t)
         t += 1
-    return _finalize(states, batch, t)
+    return _finalize(states, batch, t, shard)

@@ -20,7 +20,10 @@ Every random draw is made on the CPU from one ``torch.Generator`` and moved
 to the device: the opening lengths and moves here, the cap coins here, the
 Dirichlet gamma and the sampling Gumbels in ``search/mcts.py``, the root
 Gumbels in ``search/gumbel.py``. So the card and the CPU play the same games
-from the same seed. Tests replace the draw functions (``_draw_*`` here,
+from the same seed. A fleet split over ranks (``parallel/sharding.py``)
+draws each block at the global batch's shape and keeps its own rows
+(``shard``), so 2 ranks play the games 1 rank plays. Tests replace the
+draw functions (``_draw_*`` here,
 ``_gamma``/``_gumbel`` and ``_root_gumbel`` there) to inject the JAX
 package's draws.
 """
@@ -28,7 +31,7 @@ package's draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -159,16 +162,20 @@ def _is_serial(s: SelfPlaySettings) -> bool:
 # ------------------------------------------------------------------- loop
 
 
-def _init_carry(batch: int, s: SelfPlaySettings, gen: torch.Generator, device) -> SPCarry:
+def _init_carry(batch: int, s: SelfPlaySettings, gen: torch.Generator, device,
+                shard: Optional[M.Shard] = None) -> SPCarry:
     """Fresh games + random openings (reference: parallel_selfplay.py:60-69)."""
     T, K = s.max_game_length, s.max_children
+    total = M.global_shape((batch,), shard)[0]
     fresh = E.reset_batch(batch, device=device)
     states = fresh
-    n_rand = _draw_opening_counts(batch, s.random_opening_moves, gen).to(device)
+    n_rand = M.own_rows(_draw_opening_counts(total, s.random_opening_moves, gen),
+                        shard).to(device)
     aborted = torch.zeros(batch, dtype=torch.bool, device=device)
     for r in range(s.random_opening_moves):
         active = (r < n_rand) & ~aborted & ~states.done
-        act = _uniform_legal_action(states.legal, _draw_opening_gumbel(batch, gen).to(device))
+        g = M.own_rows(_draw_opening_gumbel(total, gen), shard)
+        act = _uniform_legal_action(states.legal, g.to(device))
         states = _select(active, E.step_batch(states, act), states)
         ended = active & states.done
         states = _select(ended, fresh, states)
@@ -194,7 +201,7 @@ def _init_carry(batch: int, s: SelfPlaySettings, gen: torch.Generator, device) -
 
 def _make_body(
     eval_fn: Callable, batch: int, s: SelfPlaySettings, logits_eval: bool,
-    gen: torch.Generator,
+    gen: torch.Generator, shard: Optional[M.Shard] = None,
 ) -> Callable[[SPCarry], int]:
     """The per-ply body: advances the carry in place by one ply and returns
     the number of simulations its search ran."""
@@ -213,10 +220,10 @@ def _make_body(
                                   max_considered=min(s.max_considered, s.max_children),
                                   max_children=s.max_children)
             return G.run_gumbel_mcts(eval_fn, states, gcfg, logits_eval=logits_eval,
-                                     generator=gen)
+                                     generator=gen, shard=shard)
         cfg = M.MCTSConfig(sims, s.c_puct, max_children=s.max_children)
         return M.run_mcts(eval_fn, states, cfg, add_noise=add_noise,
-                          logits_eval=logits_eval, generator=gen, **kw)
+                          logits_eval=logits_eval, generator=gen, shard=shard, **kw)
 
     def body(c: SPCarry) -> int:
         alive = _alive(c)
@@ -232,7 +239,8 @@ def _make_body(
         if per_game:
             # independent coin per (game, move), one search with per-game
             # simulation budgets
-            coins = _draw_coin(s.playout_cap_prob, (batch,), gen).to(dev)
+            coins = M.own_rows(_draw_coin(s.playout_cap_prob, M.global_shape((batch,), shard),
+                                          gen), shard).to(dev)
             budget = torch.where(coins, s.num_simulations, s.playout_cap_sims).to(torch.int32)
             res = search(c.states, s.num_simulations, True, sim_budget=budget,
                          noise_mask=coins)
@@ -256,7 +264,7 @@ def _make_body(
             # schedule clock: total moves (parallel) vs recorded (serial)
             temp = temperature_at(c.n_rec if serial else c.states.ply, s)
             pi = M.action_probs_slots(res, temp)
-            act = M.sample_actions(res, temp, gen)
+            act = M.sample_actions(res, temp, gen, shard)
         if capped:
             # cheap searches carry NO policy target (value-only sample)
             pi = torch.where(torch.as_tensor(is_full, device=dev), pi, 0.0)
@@ -336,19 +344,24 @@ def selfplay_games(
     generator: torch.Generator,
     device,
     logits_eval: bool = False,
+    shard: Optional[M.Shard] = None,
 ) -> SelfPlayOut:
     """Play ``batch`` games on ``device`` to completion, one ply per loop
     iteration. ``eval_fn(features) -> (policy or logits, value)``, as for
     ``run_mcts``; ``generator`` is the CPU generator every draw comes from.
-    Call under ``torch.inference_mode()`` with a net in eval mode."""
+    With ``shard`` the games are that block of a global batch: each draw
+    is the global batch's, of which they keep their rows, and the loop runs
+    until no game of any shard is alive. Call under
+    ``torch.inference_mode()`` with a net in eval mode."""
     if s.search_algo not in ("puct", "gumbel"):
         raise ValueError(f"unknown search_algo {s.search_algo!r}")
     if generator.device.type != "cpu":
         raise ValueError("self-play draws come from a CPU generator")
     device = torch.device(device)
-    body = _make_body(eval_fn, batch, s, logits_eval, generator)
-    c = _init_carry(batch, s, generator, device)
+    body = _make_body(eval_fn, batch, s, logits_eval, generator, shard)
+    c = _init_carry(batch, s, generator, device, shard)
+    any_alive = bool if shard is None else shard.any
     sims_per_ply = []
-    while c.t < s.max_game_length and bool(_alive(c).any()):
+    while c.t < s.max_game_length and any_alive(bool(_alive(c).any())):
         sims_per_ply.append(body(c))
     return _finalize(c, s, sims_per_ply)
