@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--dense-baseline PATH]
+    python3 chip_smoke.py [--dense-baseline PATH] [--only multirank|nccl|tools]
 
 ``--dense-baseline`` names a copy of the earlier dense legal-mask kernel
 (one thread per action over per-action constants; for example
@@ -56,7 +56,7 @@ and carried on):
    counters predict; after it, the kernel equals its plain version on the
    fleet's replay boards at an eval half (32) and at the fleet (512). It
    prints the training path's rates, peak memory and a ``torch.profiler``
-   reading of 2 self-play plies;
+   reading of 1 self-play ply;
 6c. gumbel, the Gumbel paths: (a) ``run_gumbel_mcts`` at 8 positions x 64
    simulations, m = 16, with the dyadic mock network and root draws from
    CPU generators of one seed: visits, chosen, actions and order on the
@@ -69,8 +69,8 @@ and carried on):
    of 6b (c) with ``search_algo="gumbel"`` at 32 simulations (the same
    cuts, logged), its launches equal to the loop's prediction, the kernel
    equal to its plain version on the fleet's boards, rates and a profile
-   of 2 plies; (d) an arena match, Gumbel-32 against PUCT-32 on one net,
-   16 games, a 40-ply cap: counts that sum to the games, launches equal to
+   of 1 ply; (d) an arena match, Gumbel-32 against PUCT-32 on one net,
+   16 games, a 24-ply cap: counts that sum to the games, launches equal to
    1 + plies x (2 x 32 + 1);
 7. timings: the kernel at B = 1 (the opening) and 2, 4, 8, 32 (an eval
    half of the ``tpu`` preset), 256 (half of a 512-game eval), 512 (the
@@ -80,9 +80,9 @@ and carried on):
    device time of a fill of the same bytes (a floor) and its plain
    version, and beside the dense baseline when given (old, new, new, old); the device time of each split of a row over blocks at B = 1..8;
    the net forward at B = 1 and 8 (CUDA events);
-8. ``torch.profiler`` over one search of 100 simulations, PUCT and then
+8. ``torch.profiler`` over one search of 50 simulations, PUCT and then
    Gumbel, for where an AI move's time goes (device busy share, launches, top kernels, host ops);
-   then one search of the opening at 500 simulations by each, timed
+   then one search of the opening at 200 simulations by each, timed
    without the profiler, interleaved (PUCT, Gumbel, Gumbel, PUCT);
 9. tools, at 128 channels x 6 blocks on the card: (a) ``python -m
    xiangqi_alphazero_torch.serve export`` run as a user runs it, as 8
@@ -96,8 +96,8 @@ and carried on):
    playout boards: the first layer's int8 activations equal, logits and
    values within 1e-3, legal argmax agreement >= 99%; then the int8,
    float32 and bf16 forwards timed at B = 1, 8, 256, 512 (CUDA events,
-   interleaved); (c) ``utils.benchmark --profile standard --batch 256
-   --trace DIR``: its table, the kernel's launches equal to its rows'
+   interleaved); (c) ``utils.benchmark`` at the standard preset's net
+   (128 x 6) at 64 simulations and batch 256 with ``--trace DIR``: its table, the kernel's launches equal to its rows'
    prediction (the ``benchmark`` path of the ``kernels`` line), and
    ``utils.trace_tools`` on the trace (device time within the traced
    wall); (d) the native rules core built with the host's C++ compiler,
@@ -138,6 +138,34 @@ and carried on):
    card's name and power limit. ``--only multirank`` runs phases 1, 2 and
    10; ``--only nccl`` phases 1, 2 and (d) with the 1-rank runs it is held
    against.
+11. flagship and tools, on the card: (a) ``scripts/flagship_run.sh`` as a
+   user runs it (the training CLI under ``--auto-restart``) at the flagship
+   width, fleet and batch (256 channels x 10 blocks, Gumbel-32, 256 games,
+   batch 1024, bf16), only depth cut, each cut logged: 2 iterations, a
+   40-move cap, 1 epoch, the gated eval past the last iteration (at the
+   recipe's 100 simulations it would take ~1 min), a min-buffer the first
+   iteration fills. It prints self-play
+   simulations/s and s per ply, learner ms a step, s per iteration and
+   peak device memory; the kernel's launches must equal the loop counters'
+   prediction; (b) ``scripts/minimax_anchor.play_match``: (a)'s
+   ``checkpoint_iter2`` at 32 simulations (cut from 200) against minimax
+   depth 1, 8 games (W + D + L == 8, launches == searches x (8 + 32)); then
+   2 games at 8 simulations and depth 0 on phase 6's 128 x 6 ``.pt``, on
+   the card and on the CPU, equal in every field (else the first search
+   that differs is named); (c) ``scripts/serve_latency.run_grid`` on phase
+   6's ``.pt`` at {100, 500} simulations x {1, 4} sessions (8 requests a
+   cell at 100, 4 at 500) and on (a)'s net at 500 x 1 (4 requests), every
+   batch width warmed first: p50, the slowest request and the count (too
+   few for a p95), moves/s and the mean coalesced batch; (d)
+   ``scripts/h2h_gumbel_puct --skip-train`` over the arms of 6b (c) (PUCT)
+   and 6c (c) (Gumbel): the arena over their current parameters, 8 games
+   of PUCT-4 a side (cut from 40), the arena's 300-ply cap (counts sum to
+   the games, launches == 1 + plies x 9); an Elo ladder of 6b (c)'s
+   initial net against its checkpoint, and ``scripts/strength_report`` of
+   6b (c)'s run over it. The 8-game matches are plumbing checks, not
+   strength measurements.
+   ``--only tools`` runs phases 1, 2, the two training runs of 6b (c) and
+   6c (c), and 11.
 
 The line before the last lists each kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero before
@@ -145,12 +173,16 @@ printing any result.
 """
 
 import argparse
+import contextlib
 import copy
 import ctypes
+import dataclasses
 import gc
+import io
 import json
 import logging
 import os
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -180,12 +212,17 @@ from xiangqi_alphazero_torch.ops import _build
 from xiangqi_alphazero_torch.ops import legal_mask as LM
 from xiangqi_alphazero_torch.parallel import probe as PROBE
 from xiangqi_alphazero_torch.parallel.probe import dyadic_eval, peaked_dyadic_eval
+from xiangqi_alphazero_torch.scripts import h2h_gumbel_puct as H2H
+from xiangqi_alphazero_torch.scripts import minimax_anchor as MINIMAX
+from xiangqi_alphazero_torch.scripts import serve_latency as LATENCY
+from xiangqi_alphazero_torch.scripts import strength_report as REPORT
 from xiangqi_alphazero_torch.search import GumbelConfig, MCTSConfig, run_gumbel_mcts, run_mcts
 from xiangqi_alphazero_torch.serve import export as TX
 from xiangqi_alphazero_torch.serve.api import make_server
 from xiangqi_alphazero_torch.serve.predictor import Predictor
 from xiangqi_alphazero_torch.train import arena as TARENA
 from xiangqi_alphazero_torch.train import config as TC
+from xiangqi_alphazero_torch.train import elo as ELO
 from xiangqi_alphazero_torch.train import learner as TL
 from xiangqi_alphazero_torch.train import selfplay as TS
 from xiangqi_alphazero_torch.train import evaluate as TE
@@ -199,7 +236,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # H100 SXM, 64 INT32 lanes per SM, half the fp32 rate
 CHANNELS, BLOCKS = 128, 6     # the shipped model's width
 SIMS = 500                    # the API's default search depth
-PROFILE_SIMS = 100            # the profiler's cost grows with its events
+PROFILE_SIMS = 50             # the profiler's cost grows with its events: 50 keeps the
+                              # whole run inside its time limit
+COMPARE_SIMS = 200            # phase 8's interleaved PUCT-against-Gumbel search (was SIMS)
 BOARDS, PLIES, SEED = 2048, 80, 0   # playouts kept every 10 plies: 8 x 2048 boards
 TIMED_BATCHES = (1, 2, 4, 8, 32, 256, 512, 2048, 16384)
 SPLITS = (1, 2, 4, 8, 16)           # blocks per board, timed at B <= 8
@@ -777,7 +816,7 @@ def train_config(ckpt_dir: str, **options) -> TC.TrainingConfig:
     """The ``tpu`` preset's net, fleet and batch; only depth is cut.
     ``options`` set the rest (the search algorithm)."""
     cfg = TC.tpu_config()
-    cuts = dict(num_simulations=32, max_game_length=40, num_epochs=1, eval_simulations=32,
+    cuts = dict(num_simulations=32, max_game_length=24, num_epochs=1, eval_simulations=16,
                 min_buffer_size=1000, num_iterations=2, eval_interval=2, save_interval=2)
     for k, v in cuts.items():
         log(f"  cut: {k} {getattr(cfg, k)} -> {v}")
@@ -975,7 +1014,7 @@ def run_trainer(dev, ckpt_dir: str, smi: str, **options) -> dict:
     assert move in Position().legal_actions(), move
     log(f"  best_model.pt served on the card ({cfg.search_algo}): AI move {move} is legal")
 
-    prof = profile_selfplay(dev, trainer, smi)
+    prof = profile_selfplay(dev, trainer, smi, plies=1)
     sp = [it["self_play"] for it in stats]
     tr = [it["training"] for it in stats if it["training"]]
     b = cfg.num_games_per_iter
@@ -1001,7 +1040,7 @@ def run_trainer(dev, ckpt_dir: str, smi: str, **options) -> dict:
 # ------------------------------------------------------------ Gumbel path
 
 GUMBEL_FLEET, GUMBEL_SIMS, GUMBEL_M = 8, 64, 16           # (a): card against CPU
-ARENA_GAMES, ARENA_SIMS, ARENA_PLIES = 16, 32, 40         # (d)
+ARENA_GAMES, ARENA_SIMS, ARENA_PLIES = 16, 32, 24         # (d): the trainer's move cap
 
 
 def check_gumbel_card_vs_cpu(dev) -> None:
@@ -1057,10 +1096,12 @@ def run_arena(dev, pt: str) -> dict:
     return out
 
 
-def phase_gumbel(dev, model_dir: str, model_name: str, smi: str) -> dict:
+def phase_gumbel(dev, model_dir: str, model_name: str, smi: str, ckpt_dir: str) -> dict:
     """The Gumbel paths: (a) the search, card == CPU; (b) serving at the
     shipped width, 500 and 32 simulations; (c) Gumbel training at the
-    ``tpu`` preset's width and fleet; (d) an arena match."""
+    ``tpu`` preset's width and fleet, its checkpoints in ``ckpt_dir``
+    (phase 11's head-to-head takes them as its Gumbel arm); (d) an arena
+    match."""
     t0 = time.perf_counter()
     check_gumbel_card_vs_cpu(dev)
     t1 = time.perf_counter()
@@ -1068,8 +1109,8 @@ def phase_gumbel(dev, model_dir: str, model_name: str, smi: str) -> dict:
                         more_sims=(32,))
     log(f"  (b) done in {time.perf_counter() - t1:.1f} s")
     t2 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as ckpt:
-        train = run_trainer(dev, ckpt, smi, search_algo="gumbel")
+    os.makedirs(ckpt_dir)
+    train = run_trainer(dev, ckpt_dir, smi, search_algo="gumbel")
     log(f"  (c) done in {time.perf_counter() - t2:.1f} s")
     arena = run_arena(dev, os.path.join(model_dir, model_name))
     log(f"  (a)-(d) in {time.perf_counter() - t0:.1f} s")
@@ -1281,8 +1322,8 @@ def phase_profile(dev, net, sims: int, algo: str = "puct") -> None:
         pred.search_position(pos)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()   # one pass over the events: it takes seconds
+    kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     launches = sum(e.count for e in kernels)
     log(f"profile, one {algo} search of {sims} sims (profiler on): wall {wall:.4f} s, "
@@ -1298,7 +1339,7 @@ def phase_profile(dev, net, sims: int, algo: str = "puct") -> None:
         f"{k} {v:.4f} s" for k, v in groups.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
-    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    host = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU]
     log(f"  host: {sum(e.count for e in host)} profiled ops; top by self CPU time:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
         log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
@@ -1306,13 +1347,13 @@ def phase_profile(dev, net, sims: int, algo: str = "puct") -> None:
 
 def phase_profiles(dev, net) -> dict:
     """Phase 8: each search profiled at ``PROFILE_SIMS``, then one search
-    of the opening at ``SIMS`` simulations by each, timed without the
+    of the opening at ``COMPARE_SIMS`` simulations by each, timed without the
     profiler in the order PUCT, Gumbel, Gumbel, PUCT: the two searches
     compared in the same conditions (earlier phases' order and profiler
     windows do not favour either). Returns the mean seconds of each."""
     for algo in ("puct", "gumbel"):
         phase_profile(dev, net, PROFILE_SIMS, algo)
-    preds = {a: Predictor(net, num_simulations=SIMS, algo=a, device=dev)
+    preds = {a: Predictor(net, num_simulations=COMPARE_SIMS, algo=a, device=dev)
              for a in ("puct", "gumbel")}
 
     def one_search(pred):
@@ -1322,7 +1363,7 @@ def phase_profiles(dev, net) -> dict:
         return time.perf_counter() - t0
 
     out = interleaved(preds, one_search)
-    log(f"one search of the opening at {SIMS} sims, no profiler, interleaved (puct, gumbel, "
+    log(f"one search of the opening at {COMPARE_SIMS} sims, no profiler, interleaved (puct, gumbel, "
         f"gumbel, puct): puct {out['puct']:.4f} s, gumbel {out['gumbel']:.4f} s, "
         f"ratio {out['gumbel'] / out['puct']:.3f}")
     return out
@@ -1337,7 +1378,9 @@ INT8_BOARDS = 512
 INT8_LOGIT_ATOL = 1e-3                   # int8 twin, card against CPU (logits and values)
 INT8_ARGMAX_AGREE = 0.99
 INT8_BATCHES = (1, 8, 256, 512)
-HARNESS_ARGS = ["--profile", "standard", "--batch", "256"]
+# the standard preset's net (128 x 6, bf16) at the harness's default 64 simulations,
+# not the preset's 200: a third of the trace's events and the time to read them
+HARNESS_ARGS = ["--channels", "128", "--blocks", "6", "--batch", "256"]
 NATIVE_BOARDS = 200
 NATIVE_DEPTH = 2
 
@@ -1434,7 +1477,7 @@ def phase_int8(dev, playouts, net) -> dict:
 
 
 def phase_harness(trace_dir: str) -> dict:
-    """(c) the profiling harness at the standard preset on the card with a
+    """(c) the profiling harness at the standard preset's net on the card with a
     trace; the kernel's launches against its rows' counts; then the trace
     read by trace_tools."""
     for k in KERNELS:
@@ -1542,7 +1585,8 @@ MR_GAMES, MR_SIMS, MR_PLIES = 64, 16, 16
 MR_LR = 1e-3                   # the probes' learner step
 # the training CLI at the shipped width (the quick preset's loop; float32
 # for the comparisons); only depth is cut, each cut logged in the phase
-MR_CUTS = {"--games-per-iter": "64", "--simulations": "16", "--max-game-length": "16",
+MR_EVAL_SIMS = TC.quick_config().eval_simulations   # the gated eval: no flag sets it
+MR_CUTS = {"--games-per-iter": "64", "--simulations": "16", "--max-game-length": "10",
            "--batch-size": "256", "--epochs": "1", "--eval-games": "8",
            "--eval-interval": "2", "--save-interval": "1", "--min-buffer": "256",
            "--iterations": "2"}
@@ -1868,8 +1912,8 @@ def phase_multirank(dev, smi: str, tmp: str) -> dict:
     t_phase = time.perf_counter()
     log(f"  cuts of the CLI runs (quick preset at {CHANNELS} x {BLOCKS}, float32): "
         + ", ".join(f"{a} {v}" for a, v in MR_CUTS.items())
-        + "; the gated eval at the preset's 40 simulations (no flag sets it); the 1-rank "
-        "and TP runs stop after iteration 1")
+        + f"; the gated eval at the preset's {MR_EVAL_SIMS} simulations (no flag sets it); "
+        "the 1-rank and TP runs stop after iteration 1")
     base = multirank_base(dev)
     ref = base["ref"]
     one_card = {"CUDA_VISIBLE_DEVICES": visible_cards()[0]}
@@ -1963,9 +2007,9 @@ def phase_multirank(dev, smi: str, tmp: str) -> dict:
 
     # launches: every rank of the 2-rank run, against its loop counters
     launches = [rank_launches(text) for text in dp_logs]
-    want = [predicted_rank_launches(dp, 4, 40, 1)] * MR_RANKS
+    want = [predicted_rank_launches(dp, 4, MR_EVAL_SIMS, 1)] * MR_RANKS
     assert launches == want, f"2-rank CLI launches {launches} != predicted {want}"
-    assert rank_launches(one_logs[0]) == predicted_rank_launches(one, 4, 40, 2)
+    assert rank_launches(one_logs[0]) == predicted_rank_launches(one, 4, MR_EVAL_SIMS, 2)
 
     # rates, from each rank's own stats
     sp_one = log_dicts(one_logs[0], "self-play: ")
@@ -2019,7 +2063,7 @@ def multirank_nccl(dev, smi: str, tmp: str, base: dict, one_dir: str) -> None:
     assert text.count("backend nccl") == MR_RANKS, "the CLI must start a rank a card over NCCL"
     nccl, one = cli_stats(run), cli_stats(one_dir)
     worst, far = param_gap(one_dir, run, 1, float(one[0]["training"]["learning_rate"]))
-    assert rank_launches(text) == MR_RANKS * predicted_rank_launches(nccl, 4, 40, 1)
+    assert rank_launches(text) == MR_RANKS * predicted_rank_launches(nccl, 4, MR_EVAL_SIMS, 1)
     log(f"  (d) CLI, one process on {MR_RANKS} cards (a rank a card, NCCL), iteration 1: "
         f"self-play {'equal' if without_times(nccl[0]['self_play']) == without_times(one[0]['self_play']) else 'different'} "
         f"to 1 rank's; losses {nccl[0]['training']['policy_loss']:.6f}/"
@@ -2040,6 +2084,266 @@ def phase_nccl_only(dev, smi: str, tmp: str) -> None:
     multirank_nccl(dev, smi, tmp, base, one)
 
 
+# ------------------------------------------------------------ flagship and tools
+
+FLAGSHIP_SCRIPT = os.path.join("xiangqi_alphazero_torch", "scripts", "flagship_run.sh")
+FLAGSHIP_ITERS = 2
+# the flagship recipe at its full width, fleet and batch (256 x 10, 256
+# games, batch 1024, bf16, Gumbel-32); only depth is cut, each cut logged.
+# The gated eval falls past the last iteration: at the recipe's 100
+# simulations a move it would take ~1 min (no flag sets its depth)
+FLAGSHIP_CUTS = {"--max-game-length": "40", "--epochs": "1", "--eval-interval": "3",
+                 "--min-buffer": "2048"}
+FLAGSHIP_TIMEOUT = 900                           # s
+ANCHOR_DEPTH, ANCHOR_GAMES, ANCHOR_SIMS = 1, 8, 32
+PARITY_DEPTH, PARITY_GAMES, PARITY_SIMS = 0, 2, 8   # (b): card against CPU, 128 x 6
+LATENCY_CELLS = ((100, 8), (500, 4))              # (sims, requests a cell), 128 x 6
+LATENCY_CONC = [1, 4]
+FLAGSHIP_LATENCY = (500, 1, 4)                   # sims, concurrency, requests: 256 x 10
+H2H_GAMES, H2H_SIMS = 8, 4        # the arena (300-ply cap, its default): sims cut from 40
+LADDER_PLIES = 40                 # the Elo ladder's move cap (train.elo's default 300)
+_PEAK_LINE = "peak device memory: "
+
+
+def script_flags(path: str, module: str, iters: int) -> list:
+    """The flags a shell script passes to ``python -m <module>``, with its
+    first argument (``"$ITERS"``) at ``iters`` and no further arguments."""
+    with open(path) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if f"-m {module}" in ln)
+    words = shlex.split(line.replace('"$ITERS"', str(iters)).replace('"$@"', ""))
+    return words[words.index(module) + 1:]
+
+
+def kill_by_arg(marker: str) -> None:
+    """SIGKILL every process whose command line holds ``marker`` (the
+    supervisor starts its child in a session of its own)."""
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if marker.encode() in f.read():
+                    os.kill(int(pid), 9)
+        except (OSError, ValueError):
+            pass
+
+
+def run_flagship(dev, smi: str, out_dir: str) -> dict:
+    """(a): ``flagship_run.sh`` as a user runs it (the CLI under its
+    ``--auto-restart`` supervisor), depth cut; its rates, peak memory and
+    the kernel's launches against the loop counters' prediction."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(out_dir, "ckpt")
+    cuts = [x for kv in FLAGSHIP_CUTS.items() for x in kv] + ["--checkpoint-dir", ckpt]
+    script = os.path.join(repo, FLAGSHIP_SCRIPT)
+    full = TC.config_from_args(TC.build_argparser().parse_args(
+        script_flags(script, "xiangqi_alphazero_torch.train", 200)))[0]
+    cfg = TC.config_from_args(TC.build_argparser().parse_args(
+        script_flags(script, "xiangqi_alphazero_torch.train", FLAGSHIP_ITERS) + cuts))[0]
+    for k, v in dataclasses.asdict(cfg).items():
+        if v != getattr(full, k) and k != "checkpoint_dir":
+            log(f"  cut: {k} {getattr(full, k)} -> {v}")
+    log(f"  recipe: {cfg.num_channels} x {cfg.num_res_blocks}, {cfg.search_algo}-"
+        f"{cfg.num_simulations} (m = {cfg.max_considered}), {cfg.num_games_per_iter} games, "
+        f"batch {cfg.batch_size}, {cfg.dtype}, ring {cfg.max_buffer_size}")
+    os.makedirs(out_dir)
+    path = os.path.join(out_dir, "flagship.log")
+    t0 = time.perf_counter()
+    with open(path, "w") as fh:
+        proc = subprocess.Popen(["bash", FLAGSHIP_SCRIPT, str(FLAGSHIP_ITERS), *cuts], cwd=repo,
+                                stdout=fh, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHON=sys.executable))
+        try:
+            proc.wait(timeout=FLAGSHIP_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            kill_by_arg(ckpt)
+    wall = time.perf_counter() - t0
+    text = Path(path).read_text()
+    assert proc.returncode == 0, f"flagship_run.sh exited {proc.returncode}:\n{text[-4000:]}"
+    with open(os.path.join(ckpt, "training_stats.json")) as f:
+        stats = json.load(f)
+    assert [it["iteration"] for it in stats] == list(range(1, FLAGSHIP_ITERS + 1)), stats
+    launches, want = rank_launches(text), predicted_launches(cfg, stats)
+    assert launches == want, f"flagship kernel launches {launches} != predicted {want}"
+    peak = [int(ln.split(_PEAK_LINE)[1].split()[0]) for ln in text.splitlines()
+            if _PEAK_LINE in ln]
+    assert len(peak) == 1, peak
+    assert not any(it["evaluation"] for it in stats), "the flagship's eval is cut"
+    sp = [it["self_play"] for it in stats]
+    tr = [it["training"] for it in stats if it["training"]]
+    assert tr and all(np.isfinite(t["policy_loss"]) and np.isfinite(t["value_loss"]) for t in tr)
+    sp_s = sum(x["time"] for x in sp)
+    rates = {
+        "selfplay_sims_per_s": cfg.num_games_per_iter * sum(x["simulations"] for x in sp) / sp_s,
+        "selfplay_s_per_ply": sp_s / sum(x["plies"] for x in sp),
+        "learner_ms_per_step": [1e3 * t["time"] / t["batches"] for t in tr],
+        "learner_steps": [t["batches"] for t in tr],
+        "iteration_s": [it["time"] for it in stats],
+        "peak_memory_bytes": peak[0],
+        "cli_wall_s": wall,
+    }
+    log(f"  (a) flagship on {smi}: " + json.dumps(rates))
+    log("  losses " + ", ".join(f"{t['policy_loss']:.4f}/{t['value_loss']:.4f}" for t in tr)
+        + f"; kernel launches {launches} == predicted {want}")
+    return {"launches": launches, "rates": rates,
+            "checkpoint": os.path.join(ckpt, f"checkpoint_iter{FLAGSHIP_ITERS}")}
+
+
+class CountingPredictor:
+    """A Predictor whose batched searches are counted and recorded (the
+    net's moves of an anchor match), for the launch prediction and for
+    finding where two devices' matches part."""
+
+    def __init__(self, pred):
+        self.pred, self.searches, self.visits = pred, 0, []
+
+    def search_batch(self, positions, pad_to=None):
+        self.searches += 1
+        out = self.pred.search_batch(positions, pad_to=pad_to)
+        self.visits.append([(r[0].tolist(), r[1].tolist()) for r in out])
+        return out
+
+
+def run_anchor(dev, flagship_ckpt: str, pt: str) -> dict:
+    """(b): the flagship's checkpoint against minimax depth 1 on the card,
+    launches == searches x (width + simulations); then the card against
+    the CPU at 2 games on the 128 x 6 .pt, equal in every field."""
+    pred = CountingPredictor(Predictor.load(flagship_ckpt, num_simulations=ANCHOR_SIMS,
+                                            device=dev))
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    t0 = time.perf_counter()
+    res = MINIMAX.play_match(pred, ANCHOR_DEPTH, ANCHOR_GAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LM.legal_mask_cuda.launches
+    assert res["net_wins"] + res["draws"] + res["net_losses"] == ANCHOR_GAMES, res
+    want = pred.searches * (ANCHOR_GAMES + ANCHOR_SIMS)
+    assert launches == want, f"anchor launches {launches} != predicted {want}"
+    log(f"  (b) anchor, a plumbing check ({ANCHOR_GAMES} games rate no strength): flagship "
+        f"checkpoint_iter{FLAGSHIP_ITERS} (puct-{ANCHOR_SIMS}, cut from 200) against minimax "
+        f"depth {ANCHOR_DEPTH}, {ANCHOR_GAMES} games: "
+        f"W-D-L {res['net_wins']}-{res['draws']}-{res['net_losses']}, score {res['score']}, "
+        f"Elo against the anchor {res['elo_vs_anchor']}, avg plies {res['avg_plies']}; "
+        f"{wall:.1f} s; {pred.searches} batched searches, kernel launches {launches} == "
+        f"predicted {want}")
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = CountingPredictor(Predictor.load(pt, num_simulations=PARITY_SIMS, device=where))
+        t1 = time.perf_counter()
+        runs.append((MINIMAX.play_match(p, PARITY_DEPTH, PARITY_GAMES), p,
+                     time.perf_counter() - t1))
+    (card, pc, tc), (cpu, pcpu, tcpu) = runs
+    first = next(((i, lane) for i, (a, b) in enumerate(zip(pc.visits, pcpu.visits))
+                  for lane in range(len(a)) if a[lane] != b[lane]), None)
+    assert card == cpu and first is None, (
+        f"anchor card != CPU: {card} against {cpu}; first differing search (index, lane) "
+        f"{first}")
+    log(f"  anchor card == CPU at {PARITY_GAMES} games x {PARITY_SIMS} sims, depth "
+        f"{PARITY_DEPTH}, 128 x 6: {card} ({pc.searches} searches equal; card {tc:.1f} s, "
+        f"CPU {tcpu:.1f} s)")
+    return {"launches": launches, "result": res, "wall_s": wall, "searches": pred.searches}
+
+
+def run_latency(dev, smi: str, pt: str, flagship_ckpt: str) -> dict:
+    """(c): the serving-latency grid on the 128 x 6 .pt, and one cell on the
+    flagship's net; every bucket warmed first."""
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    pred = Predictor.load(pt, device=dev)
+    rows = []
+    for sims, requests in LATENCY_CELLS:
+        rows += [("128x6",) + r for r in LATENCY.run_grid(pred, [sims], LATENCY_CONC, requests)]
+    sims, conc, requests = FLAGSHIP_LATENCY
+    flag = Predictor.load(flagship_ckpt, device=dev)
+    rows += [("256x10",) + r for r in LATENCY.run_grid(flag, [sims], [conc], requests)]
+    torch.cuda.synchronize()
+    launches = LM.legal_mask_cuda.launches
+    assert launches > 0
+    log(f"  (c) serving latency on {smi} (PUCT, float32, TF32 off; the opening; net, sims, "
+        "concurrency: p50 ms, max ms, requests, moves/s, mean batch; too few requests for a "
+        "p95):")
+    for net, s, c, p50, p95, top, n, thr, mb in rows:
+        assert 0 < p50 <= p95 <= top and thr > 0 and 1 <= mb <= c, (net, s, c, p50, top, thr, mb)
+        log(f"    {net} s{s} c{c}: {p50:.3f}, {top:.3f}, {n}, {thr:.4f}, {mb:.3f}")
+    log(f"  latency kernel launches {launches}")
+    return {"launches": launches, "rows": rows}
+
+
+def run_h2h(dev, tmp: str, puct_dir: str, gumbel_dir: str) -> dict:
+    """(d): the head-to-head over the arms of 6b (c) (PUCT) and 6c (c)
+    (Gumbel), ``--skip-train``: the arena over their current parameters;
+    then an Elo ladder of 6b (c)'s initial net and its checkpoint, and the
+    strength report of 6b (c)'s run over it."""
+    out = os.path.join(tmp, "h2h")
+    os.makedirs(out)
+    os.symlink(puct_dir, os.path.join(out, "puct"))
+    os.symlink(gumbel_dir, os.path.join(out, "gumbel"))
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    t0 = time.perf_counter()
+    assert H2H.main(["--skip-train", "--gumbel-iters", "2", "--puct-iters", "2", "--games",
+                     str(H2H_GAMES), "--arena-sims", str(H2H_SIMS), "--out", out,
+                     "--device", dev.type]) == 0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LM.legal_mask_cuda.launches
+    with open(os.path.join(out, "result.json")) as f:
+        res = json.load(f)
+    arena = res["arena"]
+    assert arena["a_wins"] + arena["b_wins"] + arena["draws"] == H2H_GAMES, res
+    want = 1 + arena["plies_run"] * (2 * H2H_SIMS + 1)
+    assert launches == want, f"h2h arena launches {launches} != predicted {want}"
+    log(f"  (d) head-to-head --skip-train, a plumbing check ({H2H_GAMES} games rate no "
+        f"strength; gumbel = 6c (c), puct = 6b (c); current parameters; puct-{H2H_SIMS} both, "
+        f"cut from 40; 300-ply cap): "
+        f"{json.dumps(res)}; {wall:.1f} s; kernel launches {launches} == predicted {want}")
+
+    cfg = TC.tpu_config()
+    iter0 = os.path.join(tmp, "ladder", "iter0.pt")
+    os.makedirs(os.path.dirname(iter0))
+    net = init_net(torch.Generator().manual_seed(cfg.seed), CHANNELS, BLOCKS)
+    torch.save({"model_state_dict": net.state_dict(),
+                "config": {"num_channels": CHANNELS, "num_res_blocks": BLOCKS}}, iter0)
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    ladder = ELO.round_robin([iter0, os.path.join(puct_dir, "checkpoint_iter2")],
+                             games=H2H_GAMES, sims=H2H_SIMS, max_game_length=LADDER_PLIES,
+                             device=dev)
+    elo_launches = LM.legal_mask_cuda.launches
+    ladder_path = os.path.join(tmp, "ladder", "ladder.json")
+    with open(ladder_path, "w") as f:
+        json.dump(ladder, f)
+    log(f"  Elo ladder (6b (c)'s initial net as iter0, its checkpoint_iter2's best net; "
+        f"{H2H_GAMES} games, puct-{H2H_SIMS}, {LADDER_PLIES}-ply cap): {json.dumps(ladder)}; "
+        f"launches {elo_launches}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert REPORT.main(["--run", puct_dir, "--ladder", ladder_path]) == 0
+    table = buf.getvalue().strip().splitlines()
+    assert len(table) == 4 and table[2].startswith("| 0 |") and table[3].startswith("| 2 |"), table
+    log("  strength report of 6b (c):\n    " + "\n    ".join(table))
+    return {"launches": launches, "elo_launches": elo_launches, "result": res, "wall_s": wall}
+
+
+def phase_flagship_tools(dev, smi: str, tmp: str, pt: str, puct_dir: str,
+                         gumbel_dir: str) -> dict:
+    """Phase 11: (a) the flagship recipe, (b) the minimax anchor, (c) the
+    serving-latency grid, (d) the head-to-head and the strength report."""
+    out = {}
+    steps = [("a", "flagship", lambda: run_flagship(dev, smi, os.path.join(tmp, "flagship"))),
+             ("b", "anchor", lambda: run_anchor(dev, out["flagship"]["checkpoint"], pt)),
+             ("c", "latency", lambda: run_latency(dev, smi, pt, out["flagship"]["checkpoint"])),
+             ("d", "h2h", lambda: run_h2h(dev, tmp, puct_dir, gumbel_dir))]
+    for tag, name, fn in steps:
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log(f"  ({tag}) done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -2047,10 +2351,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dense-baseline", metavar="PATH",
                         help="source of the earlier dense kernel, timed beside this one")
-    parser.add_argument("--only", choices=["multirank", "nccl"],
-                        help="run phases 1-2 and only phase 10 (multirank) or only its "
-                        "NCCL part (d) with the 1-rank runs it is held against; prints no "
-                        "kernels line")
+    parser.add_argument("--only", choices=["multirank", "nccl", "tools"],
+                        help="run phases 1-2 and only phase 10 (multirank), only its "
+                        "NCCL part (d) with the 1-rank runs it is held against, or only "
+                        "phase 11 (tools) after the two training runs whose checkpoints it "
+                        "takes (6b (c), 6c (c)); prints no kernels line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -2075,8 +2380,19 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             if args.only == "multirank":
                 timed("10 multirank", phase_multirank, dev, device["smi"], tmp)
-            else:
+            elif args.only == "nccl":
                 timed("10 (d) nccl", phase_nccl_only, dev, device["smi"], tmp)
+            else:
+                pt = os.path.join(tmp, f"random_{CHANNELS}x{BLOCKS}.pt")
+                write_random_pt(pt, SEED)
+                ckpt, gumbel_ckpt = os.path.join(tmp, "train"), os.path.join(tmp, "gumbel_train")
+                os.makedirs(ckpt)
+                os.makedirs(gumbel_ckpt)
+                timed("6b (c) train", lambda: run_trainer(dev, ckpt, device["smi"]))
+                timed("6c (c) gumbel train",
+                      lambda: run_trainer(dev, gumbel_ckpt, device["smi"], search_algo="gumbel"))
+                timed("11 flagship and tools", phase_flagship_tools, dev, device["smi"], tmp,
+                      pt, ckpt, gumbel_ckpt)
         log(device["smi"])
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))
@@ -2092,17 +2408,20 @@ def main(argv=None) -> int:
         serve = timed("6 serve", phase_serve, dev, tmp, name, SIMS, SEED)
         ckpt = os.path.join(tmp, "train")
         train = timed("6b train", phase_train, dev, device["smi"], ckpt)
-        gumbel = timed("6c gumbel", phase_gumbel, dev, tmp, name, device["smi"])
+        gumbel_ckpt = os.path.join(tmp, "gumbel_train")
+        gumbel = timed("6c gumbel", phase_gumbel, dev, tmp, name, device["smi"], gumbel_ckpt)
         timings = timed("7 timings", phase_timings, dev, playouts, net, dense)
         search_s = timed("8 profile", phase_profiles, dev, net)
         tools = timed("9 tools", phase_tools, dev, playouts, net, os.path.join(tmp, name),
                       train["checkpoint"], tmp)
         multirank = timed("10 multirank", phase_multirank, dev, device["smi"], tmp)
+        tools11 = timed("11 flagship and tools", phase_flagship_tools, dev, device["smi"], tmp,
+                        os.path.join(tmp, name), ckpt, gumbel_ckpt)
     log(f"AI move latency at {SIMS} sims: "
         f"{[round(x, 4) for x in serve['ai_move_s']]} s; 4 concurrent session moves: "
         f"{[round(x, 4) for x in serve['session_move_s']]} s; Gumbel AI move latency "
         f"by sims: { {n: [round(x, 4) for x in v] for n, v in gumbel['serve']['ai_move_s_by_sims'].items()} } s; "
-        f"one {SIMS}-sim search, interleaved: { {k: round(v, 4) for k, v in search_s.items()} } s; "
+        f"one {COMPARE_SIMS}-sim search, interleaved: { {k: round(v, 4) for k, v in search_s.items()} } s; "
         f"total {time.perf_counter() - t_start:.1f} s; phases (s) "
         f"{ {k: round(v, 1) for k, v in phases.items()} }")
 
@@ -2119,7 +2438,12 @@ def main(argv=None) -> int:
                                  "gumbel_train": gumbel["train"]["launches"][k["name"]],
                                  "arena": gumbel["arena"]["launches"],
                                  "benchmark": tools["benchmark_launches"],
-                                 "multirank": multirank["launches"]},
+                                 "multirank": multirank["launches"],
+                                 "flagship": tools11["flagship"]["launches"],
+                                 "anchor": tools11["anchor"]["launches"],
+                                 "latency": tools11["latency"]["launches"],
+                                 "h2h_arena": tools11["h2h"]["launches"],
+                                 "elo": tools11["h2h"]["elo_launches"]},
             "max_abs_err": err, "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": k["library_ms"],

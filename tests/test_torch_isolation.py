@@ -8,6 +8,7 @@ import ast
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -52,6 +53,13 @@ def test_importing_every_module_loads_no_jax():
     names += ["xiangqi_alphazero_torch.distributed", "xiangqi_alphazero_torch.parallel",
               "xiangqi_alphazero_torch.parallel.sharding", "xiangqi_alphazero_torch.parallel.probe",
               "xiangqi_alphazero_torch.train.__main__"]
+    # the tools (the repo's scripts/ counterparts) and the Streamlit demo
+    names += ["xiangqi_alphazero_torch.scripts", "xiangqi_alphazero_torch.scripts.minimax_anchor",
+              "xiangqi_alphazero_torch.scripts.serve_latency",
+              "xiangqi_alphazero_torch.scripts.arena_current",
+              "xiangqi_alphazero_torch.scripts.h2h_gumbel_puct",
+              "xiangqi_alphazero_torch.scripts.strength_report",
+              "xiangqi_alphazero_torch.serve.streamlit_app"]
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -81,6 +89,23 @@ def test_sources_import_no_jax():
             else:
                 continue
             assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_shell_scripts_call_only_the_port():
+    """The port's shell scripts run modules of the port alone: every
+    ``python -m`` names one, and no line outside a comment names JAX or
+    the JAX package."""
+    scripts = os.path.join(_PKG_DIR, "scripts")
+    paths = sorted(os.path.join(scripts, f) for f in os.listdir(scripts) if f.endswith(".sh"))
+    assert [os.path.basename(p) for p in paths] == ["flagship_run.sh", "setup_env.sh"]
+    for path in paths:
+        with open(path) as fh:
+            code = [ln for ln in fh.read().splitlines() if not ln.lstrip().startswith("#")]
+        modules = re.findall(r"-m\s+([\w.]+)", "\n".join(code))
+        assert all(m.startswith("xiangqi_alphazero_torch.") for m in modules), (path, modules)
+        for ln in code:
+            words = re.findall(r"[A-Za-z_][\w.]*", ln)
+            assert not any(_forbidden(w) for w in words), (path, ln)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -176,12 +176,11 @@ class BatchedSearcher:
     def warmup(self, buckets: Optional[List[int]] = None) -> None:
         """Run every bucket's search + raw forward once (cuDNN picks its
         algorithms per batch shape on first use; the reference warms its
-        server the same way, inference_server.py:101-107)."""
+        server the same way, inference_server.py:101-107). By default every
+        width a batch can take: the powers of 2 below ``max_batch`` and
+        ``max_batch`` itself."""
         if buckets is None:
-            buckets, b = [], 1
-            while b <= self.max_batch:
-                buckets.append(b)
-                b *= 2
+            buckets = sorted({_bucket(n, self.max_batch) for n in range(1, self.max_batch + 1)})
         for b in buckets:
             width = _bucket(b, self.max_batch)
             self.predictor.search_batch([Position()], pad_to=width)

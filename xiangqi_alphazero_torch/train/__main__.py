@@ -219,8 +219,10 @@ def main(argv=None) -> int:
     trainer.train(resume=resume, init_from=args.init_from)
     from ..ops import legal_mask as LM
 
-    logging.getLogger("xiangqi_az_torch").info(
-        "legal_mask kernel launches: %d", LM.legal_mask_cuda.launches)
+    log = logging.getLogger("xiangqi_az_torch")
+    log.info("legal_mask kernel launches: %d", LM.legal_mask_cuda.launches)
+    if torch.device(device).type == "cuda":
+        log.info("peak device memory: %d bytes", torch.cuda.max_memory_allocated(device))
     if cfg.num_processes > 1:
         from ..distributed import shutdown
 
