@@ -1492,7 +1492,7 @@ def phase_harness(trace_dir: str) -> dict:
     events = TT.load_trace_events(trace_dir)
     log("\n".join(TT.report(events, top=15)))
     rows = TT.aggregate_device_ops(events)
-    device_ms, wall_ms = sum(ms for _, ms, _ in rows), TT.traced_wall_ms(events)
+    device_ms, wall_ms = TT.device_busy_ms(events), TT.traced_wall_ms(events)
     assert 0 < device_ms <= wall_ms, (device_ms, wall_ms)
     traced = sum(r["launches_per_call"] for r in out["rows"])
     seen = sum(n for name, _, n in rows if LM.KERNEL_SYMBOL in name)

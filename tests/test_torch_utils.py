@@ -1,4 +1,4 @@
-"""The port's profiling tools on the CPU: ``utils/profiling.py::Timer``,
+"""The port's profiling tools on the CPU: ``utils/profiling.py::phase_profile``,
 ``utils/trace_tools.py`` on a small synthetic chrome trace in
 ``torch.profiler``'s layout (kernels, copies, fills, runtime calls and host
 operators), and ``utils/benchmark.py::main`` on ``--device cpu`` at 32
@@ -9,7 +9,6 @@ fixed action 44 is held against JAX ``v_step`` in
 import gzip
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -17,7 +16,7 @@ import torch
 
 from xiangqi_alphazero_torch.utils import benchmark as B
 from xiangqi_alphazero_torch.utils import trace_tools as TT
-from xiangqi_alphazero_torch.utils.profiling import Timer, phase_profile
+from xiangqi_alphazero_torch.utils.profiling import phase_profile
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -28,19 +27,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def test_timer_accumulates_phases():
-    t = Timer()
-    for _ in range(2):
-        with t.phase("slow", sync=torch.zeros(1)):
-            time.sleep(0.02)
-    with t.phase("fast"):
-        pass
-    assert t.counts == {"slow": 2, "fast": 1}
-    assert t.totals["slow"] >= 0.04 > t.totals["fast"]
-    lines = t.report().splitlines()
-    assert lines[0].startswith("slow") and "x2" in lines[0] and lines[1].startswith("fast")
 
 
 def _synthetic_trace() -> dict:
@@ -66,7 +52,23 @@ def test_aggregate_device_ops_reads_torch_categories():
     assert rows == [("sm90_xmma_gemm", 0.04, 1), ("legal_mask_by_piece", 0.012, 2),
                     ("Memcpy DtoH (Device -> Pageable)", 0.003, 1), ("Memset (Device)", 0.001, 1)]
     assert TT.traced_wall_ms(events) == pytest.approx(0.9)   # the host op spans 0..900 us
-    assert sum(ms for _, ms, _ in rows) <= TT.traced_wall_ms(events)
+    assert TT.device_busy_ms(events) == pytest.approx(sum(ms for _, ms, _ in rows))
+    assert TT.device_busy_ms(events) <= TT.traced_wall_ms(events)
+
+
+def test_device_busy_counts_overlapping_streams_once():
+    """Two kernels on two streams overlapping by 30 us, and one inside
+    another: busy is the union of their intervals, not the sum."""
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "a", "pid": 0, "tid": 7, "ts": 100, "dur": 50},
+        {"ph": "X", "cat": "kernel", "name": "b", "pid": 0, "tid": 8, "ts": 120, "dur": 50},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "c", "pid": 0, "tid": 9, "ts": 130, "dur": 10},
+        {"ph": "X", "cat": "kernel", "name": "d", "pid": 0, "tid": 7, "ts": 300, "dur": 20},
+    ]
+    assert sum(ms for _, ms, _ in TT.aggregate_device_ops(events)) == pytest.approx(0.13)
+    assert TT.device_busy_ms(events) == pytest.approx(0.09)   # 100..170 and 300..320
+    assert TT.report(events)[0].startswith("device busy (union of kernels, copies, fills): "
+                                           "0.090 ms over a traced wall of 0.220 ms")
 
 
 def test_trace_cli_reads_the_newest_trace(tmp_path, capsys):
@@ -81,7 +83,7 @@ def test_trace_cli_reads_the_newest_trace(tmp_path, capsys):
     os.utime(old, (1, 1))
     assert TT.main([str(tmp_path), "--top", "2"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("device total (sum of kernels, copies, fills): 0.056 ms")
+    assert out[0].startswith("device busy (union of kernels, copies, fills): 0.056 ms")
     assert "traced wall of 0.900 ms" in out[0] and len(out) == 3
     assert "sm90_xmma_gemm" in out[1] and "x2" in out[2]
     with pytest.raises(FileNotFoundError):

@@ -33,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling as _profiling
 from . import tables as _tables
 
 ROWS, COLS, NSQ = 10, 9, 90
@@ -400,6 +401,7 @@ def step_core(state: EnvState, action: torch.Tensor) -> EnvState:
     )
 
 
+@_profiling.spanned("env.evaluate")
 def evaluate_batch(state: EnvState) -> EnvState:
     """Fill in ``legal``/``done``/``winner`` from the core fields (the legal
     mask runs the CUDA kernel on the card)."""

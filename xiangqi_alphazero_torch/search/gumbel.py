@@ -45,6 +45,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..engine import env as E
+from ..utils import profiling as P
 from . import mcts as M
 from .mcts import MCTSConfig, init_tree, make_slot_priors, unpack_actions
 
@@ -166,6 +167,7 @@ def _top(scores: torch.Tensor, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return v[:, :width], i[:, :width]
 
 
+@P.spanned("search.run")
 def run_gumbel_mcts(
     eval_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
     roots: E.EnvState,
@@ -192,14 +194,17 @@ def run_gumbel_mcts(
     bidx = torch.arange(batch, device=dev)
 
     # ---- root eval, Gumbel sample, top-m candidates ----------------------
-    probs, root_value = eval_fn(E.features(roots.board, roots.side))
-    root_value = root_value.float()
-    slot_a, valid, p_raw = slot_priors(roots.board, roots.side, roots.legal, probs)
-    p_slot = M._mask_normalize(p_raw, valid)
-    logits = _log_priors(p_slot, valid)
-    g = M.own_rows(_root_gumbel(M.global_shape((batch,), shard)[0], k, generator, dev), shard)
-    base = torch.where(valid, g + logits, -torch.inf)           # g + logits
-    cand_base, cand_slot = _top(base, m)                        # [B, m], -inf pads
+    with P.span("search.root"):
+        probs, root_value = M.evaluate(eval_fn, E.features(roots.board, roots.side))
+        root_value = root_value.float()
+        slot_a, valid, p_raw = slot_priors(roots.board, roots.side, roots.legal, probs)
+        p_slot = M._mask_normalize(p_raw, valid)
+        logits = _log_priors(p_slot, valid)
+        with P.span("draw.root_noise"):
+            g = M.own_rows(_root_gumbel(M.global_shape((batch,), shard)[0], k, generator, dev),
+                           shard)
+        base = torch.where(valid, g + logits, -torch.inf)           # g + logits
+        cand_base, cand_slot = _top(base, m)                        # [B, m], -inf pads
     # games with fewer legal moves than m keep -inf pad columns; the
     # round-robin rank is clamped per game so a pad slot is never forced
     # (the halving's sort keeps finite scores ahead of -inf, so this count
@@ -228,6 +233,7 @@ def run_gumbel_mcts(
     for si, (m_p, cnt) in enumerate(segs):
         eff = n_cand.clamp(max=m_p)
         for i in range(lo, lo + cnt):
+            P.count("search.simulations")
             forced = cand_slot[bidx, (i - lo) % eff]
             mode, sel_parent, sel_slot, leaf, core, pnode, pslot, depth = M._descend(
                 tree, roots, max_depth, gumbel_rule(node_val, forced, cfg))
@@ -243,9 +249,10 @@ def run_gumbel_mcts(
             # halving: re-sort the survivors by g + logits + sigma(q) so the
             # next segment's round-robin over ranks < m_next visits exactly
             # the kept half
-            order = _top(cand_scores(m_p), m)[1]
-            cand_slot = cand_slot.gather(1, order)
-            cand_base = cand_base.gather(1, order)
+            with P.span("search.halving"):
+                order = _top(cand_scores(m_p), m)[1]
+                cand_slot = cand_slot.gather(1, order)
+                cand_base = cand_base.gather(1, order)
 
     # ---- final selection + improved policy -------------------------------
     win = cand_scores(segs[-1][0]).argmax(dim=-1)

@@ -35,6 +35,12 @@ Differences from the JAX package, none of which changes a result:
   the CPU search alike. JAX and torch streams differ, so tests compare with
   the noise off or with injected draws. A batch that is one rank's block
   of a global batch (``Shard``) draws the global block and keeps its rows.
+
+Under ``utils/profiling.py``'s ``recording()`` a search records the spans
+``search.run``, ``search.root`` (with ``draw.root_noise``), one
+``search.descend`` and one ``search.expand`` a simulation, ``env.evaluate``
+(``engine/env.py``) and ``net.forward`` around every evaluation, and counts
+``search.simulations``, ``search.descent_levels`` and ``net.positions``.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..engine import env as E
+from ..utils import profiling as P
 
 ACTION_SPACE = E.ACTION_SPACE
 
@@ -273,6 +280,7 @@ def puct_rule(c_puct: float) -> Callable:
     return select
 
 
+@P.spanned("search.descend")
 def _descend(tree: Tree, root: E.EnvState, max_depth: int, select: Callable):
     """Select down every game's tree to a leaf, taking at each node the slot
     ``select(cur, depth, node_n, e_n, e_w, priors, acts, valid)`` names
@@ -280,7 +288,8 @@ def _descend(tree: Tree, root: E.EnvState, max_depth: int, select: Callable):
     root). Returns (mode, sel_parent, sel_slot, leaf, leaf core state,
     path_node[B, D], path_slot[B, D], depth): path_node[:, d]/path_slot[:, d]
     is the edge taken at depth d (valid for d < depth). The leaf state's
-    legal/done/winner are stale."""
+    legal/done/winner are stale. Each level of the loop reads ``stop``
+    back to the host, and is counted in ``search.descent_levels``."""
     bsz = tree.root_n.shape[0]
     dev = tree.ew.device
     bidx = torch.arange(bsz, device=dev)
@@ -293,6 +302,7 @@ def _descend(tree: Tree, root: E.EnvState, max_depth: int, select: Callable):
     mode = torch.where(root_has_children, _MODE_CREATE, _MODE_NOOP)
     path_node, path_slot = [], []
     while not bool(stop.all()):
+        P.count("search.descent_levels")
         act = ~stop
         e_n = tree.ew[bidx, 0, cur]
         e_w = tree.ew[bidx, 1, cur]
@@ -353,6 +363,7 @@ def _backup(tree: Tree, pnode, pslot, depth, v) -> None:
     )
 
 
+@P.spanned("search.expand")
 def _expand_and_backup(
     tree: Tree, eval_fn: Callable, slot_priors: Callable, new_idx: int, mode,
     sel_parent, sel_slot, leaf, core, pnode, pslot, depth,
@@ -365,7 +376,7 @@ def _expand_and_backup(
     Returns the evaluated leaf states and the net's values."""
     bidx = torch.arange(tree.root_n.shape[0], device=tree.ew.device)
     leaf_env = E.evaluate_batch(core)
-    probs, value = eval_fn(E.features(leaf_env.board, leaf_env.side))
+    probs, value = evaluate(eval_fn, E.features(leaf_env.board, leaf_env.side))
     value = value.float()
     is_create = mode == _MODE_CREATE
     t_val = torch.where(leaf_env.winner != 0, 1.0, 0.0)   # mcts.py:138-140
@@ -385,6 +396,15 @@ def _expand_and_backup(
     _backup(tree, pnode, pslot, depth, v)
     tree.root_n += (mode != _MODE_NOOP).to(torch.int32)
     return leaf_env, value
+
+
+def evaluate(eval_fn: Callable, feats: torch.Tensor):
+    """``eval_fn(feats)`` as the span ``net.forward``, its rows counted in
+    ``net.positions``."""
+    with P.span("net.forward"):
+        out = eval_fn(feats)
+    P.count("net.positions", feats.shape[0])
+    return out
 
 
 class Shard(NamedTuple):
@@ -430,6 +450,7 @@ def _gumbel(shape, generator: Optional[torch.Generator], device) -> torch.Tensor
     return (-torch.log(-torch.log(u.clamp(min=1e-20)))).to(device)
 
 
+@P.spanned("search.run")
 def run_mcts(
     eval_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
     roots: E.EnvState,
@@ -458,26 +479,30 @@ def run_mcts(
     tree = init_tree(batch, cfg, dev)
 
     # Root priors (+ optional Dirichlet noise), reference mcts.py:107-123.
-    probs, _ = eval_fn(E.features(roots.board, roots.side))
-    slot_a, valid, p_raw = slot_priors(roots.board, roots.side, roots.legal, probs)
-    p_slot = _mask_normalize(p_raw, valid)
-    if add_noise:
-        gam = _gamma(cfg.dirichlet_alpha, global_shape((batch, k), shard), generator, dev)
-        g = torch.where(valid, own_rows(gam, shard), 0.0)
-        noise = g / g.sum(dim=-1, keepdim=True).clamp(min=1e-30)
-        p_noised = torch.where(
-            valid, (1.0 - cfg.noise_frac) * p_slot + cfg.noise_frac * noise, 0.0
-        )
-        p_slot = p_noised if noise_mask is None else torch.where(
-            noise_mask[:, None], p_noised, p_slot
-        )
-    tree.actions[:, 0] = slot_a
-    tree.priors[:, 0] = p_slot
-    tree.expanded[:, 0] = valid.any(dim=-1)
+    with P.span("search.root"):
+        probs, _ = evaluate(eval_fn, E.features(roots.board, roots.side))
+        slot_a, valid, p_raw = slot_priors(roots.board, roots.side, roots.legal, probs)
+        p_slot = _mask_normalize(p_raw, valid)
+        if add_noise:
+            with P.span("draw.root_noise"):
+                gam = _gamma(cfg.dirichlet_alpha, global_shape((batch, k), shard), generator,
+                             dev)
+            g = torch.where(valid, own_rows(gam, shard), 0.0)
+            noise = g / g.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+            p_noised = torch.where(
+                valid, (1.0 - cfg.noise_frac) * p_slot + cfg.noise_frac * noise, 0.0
+            )
+            p_slot = p_noised if noise_mask is None else torch.where(
+                noise_mask[:, None], p_noised, p_slot
+            )
+        tree.actions[:, 0] = slot_a
+        tree.priors[:, 0] = p_slot
+        tree.expanded[:, 0] = valid.any(dim=-1)
 
     max_depth = cfg.num_simulations + 2   # depth <= i + 1: never binds
     select = puct_rule(cfg.c_puct)
     for i in range(cfg.num_simulations):
+        P.count("search.simulations")
         mode, sel_parent, sel_slot, leaf, core, pnode, pslot, depth = _descend(
             tree, roots, max_depth, select
         )
@@ -557,7 +582,8 @@ def sample_actions(
         torch.log(counts.clamp(min=1e-30)) / t_safe[:, None],
         -torch.inf,
     )
-    gumbel = own_rows(_gumbel(global_shape(counts.shape, shard), generator, counts.device),
-                      shard)
+    with P.span("draw.sample"):
+        gumbel = own_rows(_gumbel(global_shape(counts.shape, shard), generator, counts.device),
+                          shard)
     slot = torch.where(t == 0.0, greedy_slots(result), (logw + gumbel).argmax(dim=-1))
     return result.actions.gather(1, slot[:, None])[:, 0]

@@ -24,6 +24,12 @@ carry the data group), the gradients are summed over ``data`` with the
 loss partials in one ``all_reduce``, and clipped by the global norm; under
 tensor parallelism the policy loss's softmax runs over the sharded logits.
 Without a mesh the code path and the numbers are the single-device ones.
+
+Under ``utils/profiling.py``'s ``recording()`` a ``train_epochs`` call
+records the spans ``learn.epochs`` (the root), ``learn.upload``, one
+``learn.step`` a step (with ``learn.gather``, ``learn.forward_backward`` and
+``learn.optimizer``) and ``learn.readback``, and counts ``learn.steps`` and
+``learn.rows``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 
 from ..engine import env as E
 from ..parallel import sharding as SH
+from ..utils import profiling as P
 
 
 class Optimizer:
@@ -51,6 +58,7 @@ class Optimizer:
             self.params, lr=learning_rate, weight_decay=weight_decay
         )
 
+    @P.spanned("learn.optimizer")
     def step(self, losses: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
         """Clip and step. With a mesh the gradients (and ``losses``, the
         step's loss partials) are first summed over ``data``; returns the
@@ -135,8 +143,9 @@ def train_step(net: torch.nn.Module, opt: Optimizer, boards, sides, pi_actions,
     the whole batch's (``batch_norms``), and the losses returned are the
     whole batch's."""
     opt.zero_grad()
-    m = compute_loss(net, boards, sides, pi_actions, pi_probs, z, w, norm, opt.mesh)
-    m.total_loss.backward()
+    with P.span("learn.forward_backward"):
+        m = compute_loss(net, boards, sides, pi_actions, pi_probs, z, w, norm, opt.mesh)
+        m.total_loss.backward()
     if opt.mesh is None:
         opt.step()
         return TrainMetrics(*(x.detach() for x in m))
@@ -145,6 +154,7 @@ def train_step(net: torch.nn.Module, opt: Optimizer, boards, sides, pi_actions,
     return TrainMetrics(p, v, p + v)
 
 
+@P.spanned("learn.epochs")
 def train_epochs(
     net: torch.nn.Module,
     opt: Optimizer,
@@ -161,14 +171,21 @@ def train_epochs(
     steps = perm.shape[0]
     if steps == 0:
         return torch.zeros((0, 2))
-    n = int(perm.max()) + 1
-    bufs = [torch.as_tensor(np.ascontiguousarray(a[:n])).to(dev) for a in arrays]
-    perm_d = torch.as_tensor(perm).to(dev).long()
-    w_d = torch.as_tensor(wmask).to(dev)
+    with P.span("learn.upload"):
+        n = int(perm.max()) + 1
+        bufs = [torch.as_tensor(np.ascontiguousarray(a[:n])).to(dev) for a in arrays]
+        perm_d = torch.as_tensor(perm).to(dev).long()
+        w_d = torch.as_tensor(wmask).to(dev)
     step = train_step if opt.mesh is None else SH.make_sharded_train_step(opt.mesh)
     losses = []
     for i in range(steps):
-        idx = perm_d[i]
-        m = step(net, opt, *(b[idx] for b in bufs), w_d[i])
-        losses.append(torch.stack([m.policy_loss, m.value_loss]))
-    return torch.stack(losses).float().cpu()
+        with P.span("learn.step"):
+            with P.span("learn.gather"):
+                idx = perm_d[i]
+                rows = [b[idx] for b in bufs]
+            m = step(net, opt, *rows, w_d[i])
+            losses.append(torch.stack([m.policy_loss, m.value_loss]))
+        P.count("learn.steps")
+        P.count("learn.rows", perm.shape[1])
+    with P.span("learn.readback"):
+        return torch.stack(losses).float().cpu()

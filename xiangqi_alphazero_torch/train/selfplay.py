@@ -26,6 +26,12 @@ draws each block at the global batch's shape and keeps its own rows
 draw functions (``_draw_*`` here,
 ``_gamma``/``_gumbel`` and ``_root_gumbel`` there) to inject the JAX
 package's draws.
+
+Under ``utils/profiling.py``'s ``recording()`` a call records its phases as
+spans: ``selfplay.call`` (the root), ``selfplay.openings``, each ply's
+``selfplay.alive_check`` and ``selfplay.ply`` (with ``selfplay.act``,
+``selfplay.record``, ``selfplay.env_step`` and ``selfplay.resign``), and a
+``draw.*`` span around each draw with its copy to the device.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 from ..engine import env as E
 from ..search import gumbel as G
 from ..search import mcts as M
+from ..utils import profiling as P
 
 
 class SelfPlaySettings(NamedTuple):
@@ -162,6 +169,7 @@ def _is_serial(s: SelfPlaySettings) -> bool:
 # ------------------------------------------------------------------- loop
 
 
+@P.spanned("selfplay.openings")
 def _init_carry(batch: int, s: SelfPlaySettings, gen: torch.Generator, device,
                 shard: Optional[M.Shard] = None) -> SPCarry:
     """Fresh games + random openings (reference: parallel_selfplay.py:60-69)."""
@@ -169,13 +177,15 @@ def _init_carry(batch: int, s: SelfPlaySettings, gen: torch.Generator, device,
     total = M.global_shape((batch,), shard)[0]
     fresh = E.reset_batch(batch, device=device)
     states = fresh
-    n_rand = M.own_rows(_draw_opening_counts(total, s.random_opening_moves, gen),
-                        shard).to(device)
+    with P.span("draw.opening"):
+        n_rand = M.own_rows(_draw_opening_counts(total, s.random_opening_moves, gen),
+                            shard).to(device)
     aborted = torch.zeros(batch, dtype=torch.bool, device=device)
     for r in range(s.random_opening_moves):
         active = (r < n_rand) & ~aborted & ~states.done
-        g = M.own_rows(_draw_opening_gumbel(total, gen), shard)
-        act = _uniform_legal_action(states.legal, g.to(device))
+        with P.span("draw.opening"):
+            g = M.own_rows(_draw_opening_gumbel(total, gen), shard).to(device)
+        act = _uniform_legal_action(states.legal, g)
         states = _select(active, E.step_batch(states, act), states)
         ended = active & states.done
         states = _select(ended, fresh, states)
@@ -225,6 +235,7 @@ def _make_body(
         return M.run_mcts(eval_fn, states, cfg, add_noise=add_noise,
                           logits_eval=logits_eval, generator=gen, shard=shard, **kw)
 
+    @P.spanned("selfplay.ply")
     def body(c: SPCarry) -> int:
         alive = _alive(c)
         if not serial:
@@ -239,8 +250,10 @@ def _make_body(
         if per_game:
             # independent coin per (game, move), one search with per-game
             # simulation budgets
-            coins = M.own_rows(_draw_coin(s.playout_cap_prob, M.global_shape((batch,), shard),
-                                          gen), shard).to(dev)
+            with P.span("draw.coin"):
+                coins = M.own_rows(_draw_coin(s.playout_cap_prob,
+                                              M.global_shape((batch,), shard), gen),
+                                   shard).to(dev)
             budget = torch.where(coins, s.num_simulations, s.playout_cap_sims).to(torch.int32)
             res = search(c.states, s.num_simulations, True, sim_budget=budget,
                          noise_mask=coins)
@@ -248,34 +261,38 @@ def _make_body(
         elif capped:
             # one coin per ply for the whole fleet: the full search, or a
             # cheap one run noiseless (KataGo §3.1)
-            is_full = bool(_draw_coin(s.playout_cap_prob, (), gen))
+            with P.span("draw.coin"):
+                is_full = bool(_draw_coin(s.playout_cap_prob, (), gen))
             sims = s.num_simulations if is_full else s.playout_cap_sims
             res = search(c.states, sims, is_full)
         else:
             sims = s.num_simulations
             res = search(c.states, sims, True)
 
-        if gumbel:
-            # paper semantics: train on the improved policy, act the
-            # halving winner (the Gumbel sample is the exploration)
-            pi = torch.where(res.valid, res.pi_improved, 0.0)
-            act = res.chosen
-        else:
-            # schedule clock: total moves (parallel) vs recorded (serial)
-            temp = temperature_at(c.n_rec if serial else c.states.ply, s)
-            pi = M.action_probs_slots(res, temp)
-            act = M.sample_actions(res, temp, gen, shard)
-        if capped:
-            # cheap searches carry NO policy target (value-only sample)
-            pi = torch.where(torch.as_tensor(is_full, device=dev), pi, 0.0)
+        with P.span("selfplay.act"):
+            if gumbel:
+                # paper semantics: train on the improved policy, act the
+                # halving winner (the Gumbel sample is the exploration)
+                pi = torch.where(res.valid, res.pi_improved, 0.0)
+                act = res.chosen
+            else:
+                # schedule clock: total moves (parallel) vs recorded (serial)
+                temp = temperature_at(c.n_rec if serial else c.states.ply, s)
+                pi = M.action_probs_slots(res, temp)
+                act = M.sample_actions(res, temp, gen, shard)
+            if capped:
+                # cheap searches carry NO policy target (value-only sample)
+                pi = torch.where(torch.as_tensor(is_full, device=dev), pi, 0.0)
 
-        c.boards[c.t] = c.states.board
-        c.sides[c.t] = c.states.side
-        c.pi_actions[c.t] = res.actions
-        c.pi_probs[c.t] = pi
-        c.rec[c.t] = alive
+        with P.span("selfplay.record"):
+            c.boards[c.t] = c.states.board
+            c.sides[c.t] = c.states.side
+            c.pi_actions[c.t] = res.actions
+            c.pi_probs[c.t] = pi
+            c.rec[c.t] = alive
 
-        states = _select(alive, E.step_batch(c.states, act), c.states)
+        with P.span("selfplay.env_step"):
+            states = _select(alive, E.step_batch(c.states, act), c.states)
         c.n_rec = c.n_rec + alive.to(torch.int32)
 
         # resign: the parallel loop checks the post-move state with no
@@ -283,18 +300,20 @@ def _make_body(
         # move that just ended the game); the serial loop skips finished
         # games and gates on step > 40 instead of > 10 recorded samples
         if s.enable_resign:
-            _, val = eval_fn(E.features(states.board, states.side))
-            gate = alive & (c.n_rec > (40 if serial else 10))
-            if serial:
-                gate = gate & ~states.done
-            c.resign_run = torch.where(
-                gate & (val < s.resign_threshold),
-                c.resign_run + 1,
-                torch.where(gate, 0, c.resign_run),
-            ).to(torch.int32)
-            trigger = gate & (c.resign_run >= s.resign_check_steps)
-            c.forced = c.forced | trigger
-            c.forced_winner = torch.where(trigger, -states.side, c.forced_winner).to(torch.int8)
+            with P.span("selfplay.resign"):
+                _, val = M.evaluate(eval_fn, E.features(states.board, states.side))
+                gate = alive & (c.n_rec > (40 if serial else 10))
+                if serial:
+                    gate = gate & ~states.done
+                c.resign_run = torch.where(
+                    gate & (val < s.resign_threshold),
+                    c.resign_run + 1,
+                    torch.where(gate, 0, c.resign_run),
+                ).to(torch.int32)
+                trigger = gate & (c.resign_run >= s.resign_check_steps)
+                c.forced = c.forced | trigger
+                c.forced_winner = torch.where(trigger, -states.side,
+                                              c.forced_winner).to(torch.int8)
         c.states = states
         c.t += 1
         return sims
@@ -337,6 +356,7 @@ def _finalize(out: SPCarry, s: SelfPlaySettings, sims_per_ply) -> SelfPlayOut:
     )
 
 
+@P.spanned("selfplay.call")
 def selfplay_games(
     eval_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
     batch: int,
@@ -362,6 +382,9 @@ def selfplay_games(
     c = _init_carry(batch, s, generator, device, shard)
     any_alive = bool if shard is None else shard.any
     sims_per_ply = []
-    while c.t < s.max_game_length and any_alive(bool(_alive(c).any())):
+    while c.t < s.max_game_length:
+        with P.span("selfplay.alive_check"):   # the loop's one blocking read a ply
+            if not any_alive(bool(_alive(c).any())):
+                break
         sims_per_ply.append(body(c))
     return _finalize(c, s, sims_per_ply)

@@ -11,10 +11,10 @@ Two parts of the JAX reader do not carry over:
   "TPU"/"GPU": kernels carry ``cat: "kernel"``, copies and fills
   ``"gpu_memcpy"`` and ``"gpu_memset"``;
 - XLA's ops nest, so the JAX reader takes the largest single event as the
-  total. CUDA kernels on one stream do not nest, so the total here is the
-  sum of the device events, printed beside the traced wall (the first
-  event's start to the last event's end), which it cannot exceed on one
-  stream.
+  total. CUDA events do not nest, but events on two streams can overlap, so
+  the device's busy time here is the union of the device events'
+  intervals (an overlap counts once), printed beside the traced wall (the
+  first event's start to the last event's end), which it cannot exceed.
 """
 
 from __future__ import annotations
@@ -54,6 +54,19 @@ def aggregate_device_ops(events: List[dict]) -> List[Tuple[str, float, int]]:
     return [(n, d / 1e3, cnt[n]) for n, d in dur.most_common()]
 
 
+def device_busy_ms(events: List[dict]) -> float:
+    """Milliseconds in which at least one device event ran: the union of
+    the device events' intervals."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES)
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
 def traced_wall_ms(events: List[dict]) -> float:
     """From the first complete event's start to the last one's end, ms."""
     spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
@@ -64,14 +77,14 @@ def traced_wall_ms(events: List[dict]) -> float:
 
 
 def report(events: List[dict], top: int = 25) -> List[str]:
-    """The summary lines the CLI prints: the device total beside the traced
-    wall, then the ``top`` device ops; empty when there are no device
-    events."""
+    """The summary lines the CLI prints: the device's busy time beside the
+    traced wall, then the ``top`` device ops with their shares of the
+    summed device time; empty when there are no device events."""
     rows = aggregate_device_ops(events)
     if not rows:
         return []
     total = sum(ms for _, ms, _ in rows) or 1e-9
-    lines = [f"device total (sum of kernels, copies, fills): {total:.3f} ms "
+    lines = [f"device busy (union of kernels, copies, fills): {device_busy_ms(events):.3f} ms "
              f"over a traced wall of {traced_wall_ms(events):.3f} ms, "
              f"{sum(n for _, _, n in rows)} events"]
     for name, ms, n in rows[:top]:
